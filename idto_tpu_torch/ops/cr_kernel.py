@@ -1,0 +1,266 @@
+"""Fused block cyclic-reduction solve of penta-diagonal systems: the
+hand-written CUDA kernel ``csrc/cr_solve.cu`` and its plain PyTorch
+version (counterpart of ``idto_tpu/ops/cr_pallas.py``).
+
+``solve_many(H, rhs)`` packs each penta-diagonal system into a
+block-tridiagonal one of 2k-wide super-rows (``ops/cyclic_reduction``),
+pads it to a power of two with identity rows, runs the reduction and
+unpacks.  On a CUDA tensor it launches the kernel -- one thread block per
+system, one launch per call -- and on a CPU tensor it runs
+``solve_many_reference``, the same math in plain PyTorch.  Any other
+device, dtype or shape raises; there is no fallback.
+
+The kernel library is compiled from the package's sources with ``nvcc``
+at first use into ``build/idto_tpu_torch/`` at the repository root and
+loaded with ``ctypes``.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+from idto_tpu_torch.ops.cyclic_reduction import _pack_rhs, _pack_super_tridiag
+from idto_tpu_torch.ops.penta import PentaBands
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG_DIR, "csrc", "cr_solve.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "idto_tpu_torch")
+_THREADS = 256
+# Dynamic shared memory a block may use on sm_90 (227 KB).
+_MAX_SMEM = 232448
+
+launches = 0  # kernel launches since import (or since reset by the caller)
+_lib = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA cyclic-reduction kernel "
+                           "cannot be built")
+    return path
+
+
+def build() -> str:
+    """Compile ``csrc/cr_solve.cu`` for sm_90a into BUILD_DIR (keyed by the
+    source's hash) and return the library path.  Raises if nvcc fails."""
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"libcr_solve_{digest}.so")
+    if os.path.exists(out):
+        return out
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", tmp, _SOURCE,
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    build.ptxas_log = proc.stderr
+    return out
+
+
+build.ptxas_log = ""
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        ptr = [ctypes.c_void_p] * 6
+        ints = [ctypes.c_int] * 4
+        for name in ("cr_solve_f64", "cr_solve_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = ptr + ints + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.cr_work_elems.argtypes = [ctypes.c_int] * 3
+        lib.cr_work_elems.restype = ctypes.c_size_t
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# Block-tridiagonal cyclic reduction: (L, C, U) (B, m, K, K), b (B, R, m, K),
+# m a power of two.
+
+
+def _gj_inverse(M):
+    """Pivot-free Gauss-Jordan inverse of (..., K, K) SPD blocks, the
+    elimination order of the kernel."""
+    K = M.shape[-1]
+    idx = torch.arange(K, device=M.device)
+    for j in range(K):
+        f = M[..., :, j]                       # (..., K) column j
+        recip = 1.0 / M[..., j, j]             # (...,)
+        r = M[..., j, :] * recip[..., None]    # row j scaled
+        r = torch.where(idx == j, recip[..., None], r)
+        M = M - f[..., :, None] * r[..., None, :]
+        M = torch.where(idx[None, :] == j, (-f * recip[..., None])[..., None], M)
+        M = torch.where(idx[:, None] == j, r[..., None, :], M)
+    return M
+
+
+def _bmv(A, x):
+    """(B, h, K, K) @ (B, R, h, K) -> (B, R, h, K)."""
+    return torch.einsum("bhij,brhj->brhi", A, x)
+
+
+def solve_tridiag_reference(L, C, U, b):
+    """Plain PyTorch version of the kernel's cyclic reduction."""
+    Bn, R, m, K = b.shape
+    zblk = torch.zeros((Bn, 1, K, K), dtype=C.dtype, device=C.device)
+    eye = torch.eye(K, dtype=C.dtype, device=C.device).expand(Bn, 1, K, K)
+    levels = []
+    size = m
+    while size > 1:
+        half = size // 2
+        L_ev, L_od = L[:, 0::2], L[:, 1::2]
+        C_ev, C_od = C[:, 0::2], C[:, 1::2]
+        U_ev, U_od = U[:, 0::2], U[:, 1::2]
+        b_ev, b_od = b[:, :, 0::2], b[:, :, 1::2]
+        Cinv_ev = _gj_inverse(C_ev)
+        # Odd row 2j+1 sits between even rows j and j+1; the last one has
+        # identity / zero padding below.
+        Cinv_below = torch.cat([Cinv_ev[:, 1:], eye], dim=1)
+        L_below = torch.cat([L_ev[:, 1:], zblk], dim=1)
+        U_below = torch.cat([U_ev[:, 1:], zblk], dim=1)
+        b_below = torch.cat([b_ev[:, :, 1:], torch.zeros_like(b_ev[:, :, :1])],
+                            dim=2)
+        alpha = L_od @ Cinv_ev
+        beta = U_od @ Cinv_below
+        levels.append((Cinv_ev, L_ev, U_ev, b_ev))
+        L = -(alpha @ L_ev)
+        C = C_od - alpha @ U_ev - beta @ L_below
+        U = -(beta @ U_below)
+        b = b_od - _bmv(alpha, b_ev) - _bmv(beta, b_below)
+        size = half
+
+    x = _bmv(_gj_inverse(C), b)  # (B, R, 1, K)
+    for (Cinv_ev, L_ev, U_ev, b_ev) in reversed(levels):
+        x_above = torch.cat([torch.zeros_like(x[:, :, :1]), x[:, :, :-1]],
+                            dim=2)
+        x_ev = _bmv(Cinv_ev, b_ev - _bmv(L_ev, x_above) - _bmv(U_ev, x))
+        x = torch.stack([x_ev, x], dim=3).reshape(Bn, R, 2 * x.shape[2], K)
+    return x
+
+
+def solve_tridiag_kernel(L, C, U, b):
+    """Launch ``csrc/cr_solve.cu`` on CUDA tensors; same contract as
+    solve_tridiag_reference."""
+    global launches
+    _check_tridiag(L, C, U, b)
+    if not L.is_cuda:
+        raise ValueError("solve_tridiag_kernel needs CUDA tensors")
+    Bn, R, m, K = b.shape
+    smem = (4 * K * K + 2 * K) * L.element_size()
+    if smem > _MAX_SMEM:
+        raise ValueError(f"block size K={K} needs {smem} B of shared memory")
+    lib = _load()
+    x = torch.empty_like(b)
+    work = torch.empty(
+        Bn * lib.cr_work_elems(m, K, R), dtype=L.dtype, device=L.device
+    )
+    fn = lib.cr_solve_f64 if L.dtype == torch.float64 else lib.cr_solve_f32
+    # The kernel may still run after this returns and ``work`` is freed: the
+    # caching allocator hands that memory out again only in stream order.
+    with torch.cuda.device(L.device):
+        stream = torch.cuda.current_stream(L.device).cuda_stream
+        err = fn(L.data_ptr(), C.data_ptr(), U.data_ptr(), b.data_ptr(),
+                 x.data_ptr(), work.data_ptr(), Bn, m, K, R, stream)
+    if err != 0:
+        raise RuntimeError(f"cr_solve kernel launch failed: CUDA error {err}")
+    launches += 1
+    return x
+
+
+def _check_tridiag(L, C, U, b):
+    if b.ndim != 4:
+        raise ValueError(f"b must be (B, R, m, K), got {tuple(b.shape)}")
+    Bn, R, m, K = b.shape
+    for name, X in (("L", L), ("C", C), ("U", U)):
+        if tuple(X.shape) != (Bn, m, K, K):
+            raise ValueError(f"{name} must be {(Bn, m, K, K)}, got "
+                             f"{tuple(X.shape)}")
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"row count {m} must be a power of two")
+    if Bn < 1 or R < 1:
+        raise ValueError("empty batch or right-hand side")
+    for X in (L, C, U, b):
+        if X.dtype not in (torch.float32, torch.float64) or X.dtype != b.dtype:
+            raise ValueError("L, C, U, b must share dtype float32 or float64")
+        if X.device != b.device:
+            raise ValueError("L, C, U, b must be on one device")
+        if not X.is_contiguous():
+            raise ValueError("L, C, U, b must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# Penta-diagonal entry points.
+
+
+def _pack(H: PentaBands, rhs):
+    """(L, C, U, b) padded to mpow rows, all contiguous."""
+    if rhs.ndim != 4 or H.C.ndim != 4:
+        raise ValueError("expected bands (B, n, k, k) and rhs (B, R, n, k)")
+    Bn, R, n, k = rhs.shape
+    if tuple(H.C.shape) != (Bn, n, k, k):
+        raise ValueError(f"bands {tuple(H.C.shape)} do not match rhs "
+                         f"{tuple(rhs.shape)}")
+    L, C, U = _pack_super_tridiag(H)
+    m, K = C.shape[1], C.shape[-1]
+    mpow = 1 << max(m - 1, 0).bit_length()
+    b = _pack_rhs(rhs, m)  # (B, R, m, K)
+    if mpow != m:
+        padn = mpow - m
+        zero = torch.zeros((Bn, padn, K, K), dtype=C.dtype, device=C.device)
+        eye = torch.eye(K, dtype=C.dtype, device=C.device).expand(Bn, padn, K, K)
+        L = torch.cat([L, zero], dim=1)
+        C = torch.cat([C, eye], dim=1)
+        U = torch.cat([U, zero], dim=1)
+        b = torch.cat([b, torch.zeros((Bn, R, padn, K), dtype=b.dtype,
+                                      device=b.device)], dim=2)
+    return (L.contiguous(), C.contiguous(), U.contiguous(), b.contiguous())
+
+
+def _unpack(x, n, k):
+    Bn, R = x.shape[:2]
+    m0 = (n + 1) // 2
+    return x[:, :, :m0].reshape(Bn, R, 2 * m0, k)[:, :, :n]
+
+
+def solve_many_reference(H: PentaBands, rhs):
+    """Plain PyTorch solve of H X = rhs on any device: bands (B, n, k, k),
+    rhs (B, R, n, k) -> (B, R, n, k)."""
+    n, k = rhs.shape[-2], rhs.shape[-1]
+    L, C, U, b = _pack(H, rhs)
+    _check_tridiag(L, C, U, b)
+    return _unpack(solve_tridiag_reference(L, C, U, b), n, k)
+
+
+def solve_many(H: PentaBands, rhs):
+    """Solve H X = rhs for bands (B, n, k, k) and rhs (B, R, n, k) in one
+    fused cyclic reduction per system: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if rhs.device.type == "cpu":
+        return solve_many_reference(H, rhs)
+    if not rhs.is_cuda:
+        raise ValueError(f"no cyclic-reduction solve for device {rhs.device}")
+    n, k = rhs.shape[-2], rhs.shape[-1]
+    return _unpack(solve_tridiag_kernel(*_pack(H, rhs)), n, k)

@@ -1,0 +1,102 @@
+"""The port's main path as a whole: the batched Gauss-Newton trust-region
+solve (``solve_batch``) with block cyclic reduction, against the JAX
+package's batch-native solve with the fused Pallas kernel forced on
+(``cr_use_pallas=True``, interpret mode on the CPU).
+
+  * pendulum, live: both packages solve the same seeded batch;
+  * mini_cheetah, from goldens/torch_slice_cheetah.npz, which
+    scripts/make_torch_goldens.py writes from the JAX package (its
+    cheetah solve takes minutes to compile on a CPU).
+
+Tolerance 1e-8 on q, cost and rho per iteration: both sides run the same
+float64 algorithm, differing only in summation order (~1e-15), and a few
+trust-region iterations amplify that by at most the Hessians' condition
+number.  Iteration counts and solver flags must be equal.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from idto_tpu.examples.registry import load_example as jax_load_example
+from idto_tpu.optimizer.problem import LinearSolverType as JaxLinearSolver
+from idto_tpu.parallel.batching import broadcast_problem as jax_broadcast
+from idto_tpu.parallel.batching import solve_batch as jax_solve_batch
+from idto_tpu_torch.examples.registry import load_example
+from idto_tpu_torch.ops import cr_kernel
+from idto_tpu_torch.optimizer.problem import LinearSolverType
+from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+
+RTOL = 1e-8
+_GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "goldens", "torch_slice_cheetah.npz")
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+
+
+def _assert_stats_match(stats, ref):
+    """stats: port Stats; ref: dict of numpy arrays from the JAX side."""
+    np.testing.assert_array_equal(stats.num_iters.numpy(), ref["num_iters"])
+    np.testing.assert_array_equal(stats.solver_flag.numpy(),
+                                  ref["solver_flag"])
+    for name in ("cost", "rho"):
+        got, want = getattr(stats, name).numpy(), ref[name]
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        mask = ~np.isnan(want)
+        if name == "cost":
+            assert _rel(got[mask], want[mask]) < RTOL, name
+        else:  # trust ratios are O(1): absolute
+            assert np.abs(got[mask] - want[mask]).max() < RTOL, name
+
+
+def _port_solve(name, q_guess, max_iterations):
+    model, _, prob, params, _ = load_example(name)
+    params = params.replace(
+        max_iterations=max_iterations, verbose=False,
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION,
+    )
+    B = q_guess.shape[0]
+    return solve_batch(model, broadcast_problem(prob, B), params,
+                       torch.as_tensor(q_guess))
+
+
+def test_pendulum_matches_jax_live():
+    B, iters = 3, 8
+    jm, _, jprob, jparams, jqg = jax_load_example("pendulum")
+    jparams = jparams.replace(
+        max_iterations=iters, verbose=False, record_iteration_times=False,
+        linear_solver=JaxLinearSolver.CYCLIC_REDUCTION, cr_use_pallas=True,
+    )
+    rng = np.random.default_rng(0)
+    qg = np.asarray(jqg)[None] + 0.01 * rng.standard_normal(
+        (B,) + np.shape(jqg))
+    qg[:, 0] = np.asarray(jprob.q_init)
+    jsol, jst, _ = jax.jit(
+        lambda p, q: jax_solve_batch(jm, p, jparams, q, native=True)
+    )(jax_broadcast(jprob, B), jnp.asarray(qg))
+
+    before = cr_kernel.launches
+    sol, stats, warm = _port_solve("pendulum", qg, iters)
+    assert cr_kernel.launches == before  # CPU tensors: the plain version
+    assert _rel(sol.q, jsol.q) < RTOL
+    assert _rel(sol.tau, jsol.tau) < RTOL
+    _assert_stats_match(stats, {
+        k: np.asarray(getattr(jst, k))
+        for k in ("num_iters", "solver_flag", "cost", "rho")
+    })
+    assert warm.q.shape == (B,) + np.shape(jqg)
+
+
+def test_mini_cheetah_matches_jax_golden():
+    ref = np.load(_GOLDEN)
+    sol, stats, _ = _port_solve("mini_cheetah", ref["q_guess"],
+                                int(ref["max_iterations"]))
+    assert sol.q.dtype == torch.float64
+    assert _rel(sol.q, ref["q"]) < RTOL
+    _assert_stats_match(stats, ref)
+
