@@ -37,7 +37,7 @@ _TOLERANCES = tuple(ConvergenceTolerances.__dataclass_fields__)
 _CONTACT = tuple(ContactParams.__dataclass_fields__)
 
 
-def tensor(x, dtype=torch.float64, device="cpu"):
+def tensor(x, dtype=torch.float64, device="cuda"):
     """Array-like -> tensor (float arrays take ``dtype``)."""
     a = np.asarray(x)
     if np.issubdtype(a.dtype, np.floating):
@@ -45,7 +45,7 @@ def tensor(x, dtype=torch.float64, device="cpu"):
     return torch.as_tensor(a, device=device)
 
 
-def model(m, dtype=torch.float64, device="cpu") -> Model:
+def model(m, dtype=torch.float64, device="cuda") -> Model:
     g = m.geoms
     if getattr(g, "verts", None) is not None:
         raise NotImplementedError("CONVEX geometry is not ported yet")
@@ -62,7 +62,7 @@ def model(m, dtype=torch.float64, device="cpu") -> Model:
     )
 
 
-def problem(p, dtype=torch.float64, device="cpu") -> ProblemDefinition:
+def problem(p, dtype=torch.float64, device="cuda") -> ProblemDefinition:
     return ProblemDefinition(
         num_steps=int(p.num_steps), dt=float(p.dt),
         **{k: tensor(getattr(p, k), dtype, device) for k in _PROBLEM_ARRAYS},

@@ -116,7 +116,7 @@ class ExampleConfig:
 
 
 def build_problem(
-    cfg: ExampleConfig, model: Model, dtype=torch.float64, device="cpu"
+    cfg: ExampleConfig, model: Model, dtype=torch.float64, device="cuda"
 ) -> ProblemDefinition:
     nq, nv = model.nq, model.nv
     q_init = np.asarray(cfg.q_init, dtype=np.float64)
@@ -202,7 +202,7 @@ def build_solver_params(cfg: ExampleConfig) -> SolverParameters:
 
 
 def build_initial_guess(
-    cfg: ExampleConfig, dtype=torch.float64, device="cpu"
+    cfg: ExampleConfig, dtype=torch.float64, device="cuda"
 ):
     """Linear interpolation q_init -> q_guess, (T+1, nq)."""
     q_guess_end = (

@@ -59,7 +59,7 @@ def example_names():
     return sorted(_REGISTRY)
 
 
-def load_example(name: str, dtype=torch.float64, device="cpu"):
+def load_example(name: str, dtype=torch.float64, device="cuda"):
     """(model, config, problem, params, q_guess) for an example."""
     from idto_tpu_torch.examples.config import (
         ExampleConfig,

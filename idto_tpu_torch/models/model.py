@@ -240,7 +240,7 @@ class ModelBuilder:
     def exclude_collision(self, name_a: str, name_b: str) -> None:
         self._pair_filter.append((name_a, name_b))
 
-    def finalize(self, dtype=torch.float64, device="cpu") -> Model:
+    def finalize(self, dtype=torch.float64, device="cuda") -> Model:
         nj = len(self._joint_types)
         q_starts, v_starts = [], []
         nq = nv = 0

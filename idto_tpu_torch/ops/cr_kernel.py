@@ -3,12 +3,24 @@ hand-written CUDA kernel ``csrc/cr_solve.cu`` and its plain PyTorch
 version (counterpart of ``idto_tpu/ops/cr_pallas.py``).
 
 ``solve_many(H, rhs)`` packs each penta-diagonal system into a
-block-tridiagonal one of 2k-wide super-rows (``ops/cyclic_reduction``),
-pads it to a power of two with identity rows, runs the reduction and
-unpacks.  On a CUDA tensor it launches the kernel -- one thread block per
-system, one launch per call -- and on a CPU tensor it runs
+block-tridiagonal one of m = ceil(n/2) super-rows 2k wide
+(``ops/cyclic_reduction``), runs the reduction and unpacks.  On a CUDA
+tensor it launches the kernel -- one team of warps per system (a whole
+block down to a single warp, by the batch), one warp per block task, one
+launch per call -- and on a CPU tensor it runs
 ``solve_many_reference``, the same math in plain PyTorch.  Any other
 device, dtype or shape raises; there is no fallback.
+
+The reduction is the one of a system padded with identity rows to a power
+of two, as the TPU kernel pads it, but no pad row is ever made: both
+versions take ``rows``, the count of real block rows, and treat the rows
+past it as identity rows without reading them.  An identity row reduces to
+an identity row, so level l holds ``rows >> l`` real rows, and the padded
+and the unpadded forms do the same arithmetic on them.
+
+Block sizes K with a register-tile instantiation in the kernel (2, 6 and
+38: the registered examples) take it; any other K takes the kernel's
+run-time-K engine.
 
 The kernel library is compiled from the package's sources with ``nvcc``
 at first use into ``build/idto_tpu_torch/`` at the repository root and
@@ -31,7 +43,7 @@ from idto_tpu_torch.ops.penta import PentaBands
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "cr_solve.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "idto_tpu_torch")
-_THREADS = 256
+
 # Dynamic shared memory a block may use on sm_90 (227 KB).
 _MAX_SMEM = 232448
 
@@ -85,20 +97,23 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         ptr = [ctypes.c_void_p] * 6
-        ints = [ctypes.c_int] * 4
+        ints = [ctypes.c_int] * 6  # batch, m, rows, K, R, team
         for name in ("cr_solve_f64", "cr_solve_f32"):
             fn = getattr(lib, name)
             fn.argtypes = ptr + ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.cr_work_elems.argtypes = [ctypes.c_int] * 3
         lib.cr_work_elems.restype = ctypes.c_size_t
+        lib.cr_has_tiles.argtypes = [ctypes.c_int]
+        lib.cr_has_tiles.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 # ---------------------------------------------------------------------------
 # Block-tridiagonal cyclic reduction: (L, C, U) (B, m, K, K), b (B, R, m, K),
-# m a power of two.
+# of which the first ``rows`` block rows are real and the rest count as
+# identity rows.
 
 
 def _gj_inverse(M):
@@ -122,60 +137,102 @@ def _bmv(A, x):
     return torch.einsum("bhij,brhj->brhi", A, x)
 
 
-def solve_tridiag_reference(L, C, U, b):
-    """Plain PyTorch version of the kernel's cyclic reduction."""
+def _identity_below(X, fill):
+    """The even rows below each odd row, (B, h, K, K) -> rows 1.. followed
+    by the identity row's block (``fill``) under the last odd row."""
+    return torch.cat([X[:, 1:], fill], dim=1)
+
+
+def solve_tridiag_reference(L, C, U, b, rows=None):
+    """Plain PyTorch version of the kernel's cyclic reduction.  Only the
+    first ``rows`` (default: all) of the m block rows are read; x of the
+    others is zero.  L of row 0 and U of row ``rows - 1`` multiply nothing
+    (the kernel does not read them) but must be finite here."""
     Bn, R, m, K = b.shape
+    rows = m if rows is None else rows
+    if not 1 <= rows <= m:
+        raise ValueError(f"rows={rows} outside 1..{m}")
+    L, C, U, b = L[:, :rows], C[:, :rows], U[:, :rows], b[:, :, :rows]
     zblk = torch.zeros((Bn, 1, K, K), dtype=C.dtype, device=C.device)
     eye = torch.eye(K, dtype=C.dtype, device=C.device).expand(Bn, 1, K, K)
+    zvec = torch.zeros((Bn, R, 1, K), dtype=b.dtype, device=b.device)
     levels = []
-    size = m
-    while size > 1:
-        half = size // 2
+    while True:
+        n_od = C.shape[1] // 2
+        n_ev = C.shape[1] - n_od
         L_ev, L_od = L[:, 0::2], L[:, 1::2]
         C_ev, C_od = C[:, 0::2], C[:, 1::2]
         U_ev, U_od = U[:, 0::2], U[:, 1::2]
         b_ev, b_od = b[:, :, 0::2], b[:, :, 1::2]
         Cinv_ev = _gj_inverse(C_ev)
-        # Odd row 2j+1 sits between even rows j and j+1; the last one has
-        # identity / zero padding below.
-        Cinv_below = torch.cat([Cinv_ev[:, 1:], eye], dim=1)
-        L_below = torch.cat([L_ev[:, 1:], zblk], dim=1)
-        U_below = torch.cat([U_ev[:, 1:], zblk], dim=1)
-        b_below = torch.cat([b_ev[:, :, 1:], torch.zeros_like(b_ev[:, :, :1])],
-                            dim=2)
-        alpha = L_od @ Cinv_ev
-        beta = U_od @ Cinv_below
         levels.append((Cinv_ev, L_ev, U_ev, b_ev))
-        L = -(alpha @ L_ev)
-        C = C_od - alpha @ U_ev - beta @ L_below
+        if n_od == 0:
+            break
+        # Odd row 2j+1 sits between even rows j and j+1; when the level has
+        # as many odd rows as even ones, the last odd row has an identity
+        # row below it.
+        if n_ev == n_od:
+            Cinv_below = _identity_below(Cinv_ev, eye)
+            L_below = _identity_below(L_ev, zblk)
+            U_below = _identity_below(U_ev, zblk)
+            b_below = torch.cat([b_ev[:, :, 1:], zvec], dim=2)
+        else:
+            Cinv_below, L_below, U_below = Cinv_ev[:, 1:], L_ev[:, 1:], U_ev[:, 1:]
+            b_below = b_ev[:, :, 1:]
+        alpha = L_od @ Cinv_ev[:, :n_od]
+        beta = U_od @ Cinv_below
+        L = -(alpha @ L_ev[:, :n_od])
+        C = C_od - alpha @ U_ev[:, :n_od] - beta @ L_below
         U = -(beta @ U_below)
-        b = b_od - _bmv(alpha, b_ev) - _bmv(beta, b_below)
-        size = half
+        b = b_od - _bmv(alpha, b_ev[:, :, :n_od]) - _bmv(beta, b_below)
 
-    x = _bmv(_gj_inverse(C), b)  # (B, R, 1, K)
+    x = None  # the odd rows of the level at hand, solved one level up
     for (Cinv_ev, L_ev, U_ev, b_ev) in reversed(levels):
-        x_above = torch.cat([torch.zeros_like(x[:, :, :1]), x[:, :, :-1]],
-                            dim=2)
-        x_ev = _bmv(Cinv_ev, b_ev - _bmv(L_ev, x_above) - _bmv(U_ev, x))
-        x = torch.stack([x_ev, x], dim=3).reshape(Bn, R, 2 * x.shape[2], K)
+        n_ev = Cinv_ev.shape[1]
+        if x is None:
+            x = _bmv(Cinv_ev, b_ev)
+            continue
+        n_od = x.shape[2]
+        x_above = torch.cat([zvec, x[:, :, :n_ev - 1]], dim=2)
+        x_below = x if n_od == n_ev else torch.cat([x, zvec], dim=2)
+        x_ev = _bmv(Cinv_ev, b_ev - _bmv(L_ev, x_above) - _bmv(U_ev, x_below))
+        out = torch.empty((Bn, R, n_ev + n_od, K), dtype=x.dtype,
+                          device=x.device)
+        out[:, :, 0::2] = x_ev
+        out[:, :, 1::2] = x
+        x = out
+    if rows < m:
+        x = torch.cat([x, zvec.expand(Bn, R, m - rows, K)], dim=2)
     return x
 
 
-def solve_tridiag_kernel(L, C, U, b):
+def solve_tridiag_kernel(L, C, U, b, rows=None, team=0):
     """Launch ``csrc/cr_solve.cu`` on CUDA tensors; same contract as
-    solve_tridiag_reference."""
+    solve_tridiag_reference.  The kernel takes as many warps a block as fit
+    in shared memory (at most 8) and picks how many of them share one system:
+    all for a batch below the card's SM count, one for a batch that gives
+    every warp of the card a system.  ``team`` (warps a system) is for tests
+    only: it reaches each of these paths at a small batch."""
     global launches
     _check_tridiag(L, C, U, b)
     if not L.is_cuda:
         raise ValueError("solve_tridiag_kernel needs CUDA tensors")
     Bn, R, m, K = b.shape
-    smem = (4 * K * K + 2 * K) * L.element_size()
-    if smem > _MAX_SMEM:
-        raise ValueError(f"block size K={K} needs {smem} B of shared memory")
+    rows = m if rows is None else rows
+    if not 1 <= rows <= m:
+        raise ValueError(f"rows={rows} outside 1..{m}")
+    for X in (L, C, U, b):
+        if X.data_ptr() % 16:
+            raise ValueError("L, C, U, b must be 16-byte aligned")
     lib = _load()
+    if not lib.cr_has_tiles(K):
+        smem = (3 * (K * K + (K * K) % 2) + 3 * K) * L.element_size()
+        if smem > _MAX_SMEM:
+            raise ValueError(f"block size K={K} needs {smem} B of shared "
+                             f"memory a warp")
     x = torch.empty_like(b)
     work = torch.empty(
-        Bn * lib.cr_work_elems(m, K, R), dtype=L.dtype, device=L.device
+        Bn * lib.cr_work_elems(rows, K, R), dtype=L.dtype, device=L.device
     )
     fn = lib.cr_solve_f64 if L.dtype == torch.float64 else lib.cr_solve_f32
     # The kernel may still run after this returns and ``work`` is freed: the
@@ -183,7 +240,8 @@ def solve_tridiag_kernel(L, C, U, b):
     with torch.cuda.device(L.device):
         stream = torch.cuda.current_stream(L.device).cuda_stream
         err = fn(L.data_ptr(), C.data_ptr(), U.data_ptr(), b.data_ptr(),
-                 x.data_ptr(), work.data_ptr(), Bn, m, K, R, stream)
+                 x.data_ptr(), work.data_ptr(), Bn, m, rows, K, R, int(team),
+                 stream)
     if err != 0:
         raise RuntimeError(f"cr_solve kernel launch failed: CUDA error {err}")
     launches += 1
@@ -198,10 +256,8 @@ def _check_tridiag(L, C, U, b):
         if tuple(X.shape) != (Bn, m, K, K):
             raise ValueError(f"{name} must be {(Bn, m, K, K)}, got "
                              f"{tuple(X.shape)}")
-    if m < 1 or m & (m - 1):
-        raise ValueError(f"row count {m} must be a power of two")
-    if Bn < 1 or R < 1:
-        raise ValueError("empty batch or right-hand side")
+    if Bn < 1 or R < 1 or m < 1 or K < 1:
+        raise ValueError("empty batch, right-hand side, row or block")
     for X in (L, C, U, b):
         if X.dtype not in (torch.float32, torch.float64) or X.dtype != b.dtype:
             raise ValueError("L, C, U, b must share dtype float32 or float64")
@@ -216,7 +272,7 @@ def _check_tridiag(L, C, U, b):
 
 
 def _pack(H: PentaBands, rhs):
-    """(L, C, U, b) padded to mpow rows, all contiguous."""
+    """(L, C, U, b) of the m = ceil(n/2) real super-rows, all contiguous."""
     if rhs.ndim != 4 or H.C.ndim != 4:
         raise ValueError("expected bands (B, n, k, k) and rhs (B, R, n, k)")
     Bn, R, n, k = rhs.shape
@@ -224,25 +280,12 @@ def _pack(H: PentaBands, rhs):
         raise ValueError(f"bands {tuple(H.C.shape)} do not match rhs "
                          f"{tuple(rhs.shape)}")
     L, C, U = _pack_super_tridiag(H)
-    m, K = C.shape[1], C.shape[-1]
-    mpow = 1 << max(m - 1, 0).bit_length()
-    b = _pack_rhs(rhs, m)  # (B, R, m, K)
-    if mpow != m:
-        padn = mpow - m
-        zero = torch.zeros((Bn, padn, K, K), dtype=C.dtype, device=C.device)
-        eye = torch.eye(K, dtype=C.dtype, device=C.device).expand(Bn, padn, K, K)
-        L = torch.cat([L, zero], dim=1)
-        C = torch.cat([C, eye], dim=1)
-        U = torch.cat([U, zero], dim=1)
-        b = torch.cat([b, torch.zeros((Bn, R, padn, K), dtype=b.dtype,
-                                      device=b.device)], dim=2)
-    return (L.contiguous(), C.contiguous(), U.contiguous(), b.contiguous())
+    return L, C, U, _pack_rhs(rhs, C.shape[1])
 
 
 def _unpack(x, n, k):
-    Bn, R = x.shape[:2]
-    m0 = (n + 1) // 2
-    return x[:, :, :m0].reshape(Bn, R, 2 * m0, k)[:, :, :n]
+    Bn, R, m = x.shape[:3]
+    return x.reshape(Bn, R, 2 * m, k)[:, :, :n]
 
 
 def solve_many_reference(H: PentaBands, rhs):

@@ -12,31 +12,18 @@ import torch
 from idto_tpu_torch.ops.penta import PentaBands
 
 
-def _pad_block_rows(X, pad, diag):
-    if pad == 0:
-        return X
-    k = X.shape[-1]
-    shape = X.shape[:-3] + (pad, k, k)
-    if diag:
-        extra = torch.eye(k, dtype=X.dtype, device=X.device).expand(shape)
-    else:
-        extra = torch.zeros(shape, dtype=X.dtype, device=X.device)
-    return torch.cat([X, extra], dim=-3)
-
-
 def _pack_super_tridiag(H: PentaBands):
-    """(L, C, U) of shape (..., m, 2k, 2k), m = ceil(n/2); an odd trailing
-    row is padded with an identity diagonal block.  Row pair (2i, 2i+1)
-    couples pair i-1 through bands A, B of row 2i and A of row 2i+1, and
-    pair i+1 through E of row 2i and D, E of row 2i+1."""
+    """(L, C, U) of shape (..., m, 2k, 2k), m = ceil(n/2), contiguous; an
+    odd trailing row is padded with an identity diagonal block.  Row pair
+    (2i, 2i+1) couples pair i-1 through bands A, B of row 2i and A of row
+    2i+1, and pair i+1 through E of row 2i and D, E of row 2i+1.  Each band
+    is written once into its quadrant of a zeroed result."""
     n, k = H.n, H.k
     m = (n + 1) // 2
-    pad = 2 * m - n
-    A = _pad_block_rows(H.A, pad, False)
-    B = _pad_block_rows(H.B, pad, False)
-    C = _pad_block_rows(H.C, pad, True)
-    D = _pad_block_rows(H.D, pad, False)
-    E = _pad_block_rows(H.E, pad, False)
+    n_od = n // 2  # rows 2i+1 that exist
+    shape = H.C.shape[:-3] + (m, 2 * k, 2 * k)
+    L, C2, U = (torch.zeros(shape, dtype=H.C.dtype, device=H.C.device)
+                for _ in range(3))
 
     def ev(X):
         return X[..., 0::2, :, :]
@@ -44,27 +31,27 @@ def _pack_super_tridiag(H: PentaBands):
     def od(X):
         return X[..., 1::2, :, :]
 
-    z = torch.zeros_like(ev(A))
-
-    def blk(tl, tr, bl, br):
-        top = torch.cat([tl, tr], dim=-1)
-        bot = torch.cat([bl, br], dim=-1)
-        return torch.cat([top, bot], dim=-2)
-
-    L = blk(ev(A), ev(B), z, od(A))
-    C2 = blk(ev(C), ev(D), od(B), od(C))
-    U = blk(ev(E), z, od(D), od(E))
+    L[..., :k, :k] = ev(H.A)
+    L[..., :k, k:] = ev(H.B)
+    L[..., :n_od, k:, k:] = od(H.A)
+    C2[..., :k, :k] = ev(H.C)
+    C2[..., :k, k:] = ev(H.D)
+    C2[..., :n_od, k:, :k] = od(H.B)
+    C2[..., :n_od, k:, k:] = od(H.C)
+    if n_od < m:
+        C2[..., m - 1, k:, k:] = torch.eye(k, dtype=C2.dtype, device=C2.device)
+    U[..., :k, :k] = ev(H.E)
+    U[..., :n_od, k:, :k] = od(H.D)
+    U[..., :n_od, k:, k:] = od(H.E)
     return L, C2, U
 
 
 def _pack_rhs(b, m):
-    """(..., n, k) -> (..., m, 2k), zero padded to 2m rows."""
+    """(..., n, k) -> (..., m, 2k) contiguous, zero padded to 2m rows."""
     n, k = b.shape[-2], b.shape[-1]
-    pad = 2 * m - n
-    if pad:
-        b = torch.cat(
-            [b, torch.zeros(b.shape[:-2] + (pad, k), dtype=b.dtype,
-                            device=b.device)],
-            dim=-2,
-        )
-    return b.reshape(b.shape[:-2] + (m, 2 * k))
+    if 2 * m == n:
+        return b.contiguous().reshape(b.shape[:-2] + (m, 2 * k))
+    out = torch.zeros(b.shape[:-2] + (2 * m, k), dtype=b.dtype,
+                      device=b.device)
+    out[..., :n, :] = b
+    return out.reshape(b.shape[:-2] + (m, 2 * k))

@@ -7,7 +7,7 @@ not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-Tolerances: float64 1e-9 relative (the kernel and the plain version differ
+Tolerances (those of chip_smoke.py): float64 1e-9 relative (the kernel and the plain version differ
 only in summation order, ~1e-15 on these systems); float32 5e-4, the bound
 chip_smoke.py holds the kernel to; the slice 1e-8, as
 tests/test_torch_slice.py holds the CPU run.
@@ -68,9 +68,15 @@ def _random_spd_penta(B, n, k, rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
                                        (torch.float32, 5e-4)])
-def test_cr_kernel_matches_plain_on_card(cuda, dtype, tol):
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("n,k", [
+    (21, 19),   # the cheetah shape: register tiles of 38
+    (161, 19),  # T = 160: 81 super-rows, 7 levels
+    (21, 5),    # blocks of 10: the kernel's run-time-K engine
+])
+def test_cr_kernel_matches_plain_on_card(cuda, n, k, R, dtype, tol):
     rng = np.random.default_rng(9)
-    B, R, n, k = 4, 3, 21, 19  # the cheetah shape
+    B = 4
     bands, dense = _random_spd_penta(B, n, k, rng)
     b = rng.standard_normal((B, R, n, k))
     x_dense = np.stack([
@@ -90,6 +96,45 @@ def test_cr_kernel_matches_plain_on_card(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("team", [1, 2, 5])
+def test_cr_kernel_launch_shapes_agree(cuda, team):
+    """One warp a system, two warps a system and a whole block a system
+    give what the default launch gives, and rows past ``rows``, L of the
+    first row and U of the last are neither read nor solved."""
+    rng = np.random.default_rng(11)
+    B, R, n, k = 7, 2, 21, 19
+    bands, _ = _random_spd_penta(B, n, k, rng)
+    H = penta.PentaBands(**{f: torch.as_tensor(X, device=cuda)
+                            for f, X in bands.items()})
+    rhs = torch.as_tensor(rng.standard_normal((B, R, n, k)), device=cuda)
+    L, C, U, b = cr_kernel._pack(H, rhs)
+    x = cr_kernel.solve_tridiag_kernel(L, C, U, b)
+    x_alt = cr_kernel.solve_tridiag_kernel(L, C, U, b, team=team)
+    assert _rel(x_alt.cpu(), x.cpu()) < 1e-12
+    m = C.shape[1]
+    # Three more rows of NaNs behind the real ones, and NaNs in the two
+    # blocks that multiply nothing.
+    L, U = L.clone(), U.clone()
+    L[:, 0] = float("nan")
+    U[:, m - 1] = float("nan")
+    Lp, Cp, Up = (torch.cat([X, torch.full_like(X[:, :3], float("nan"))], 1)
+                  for X in (L, C, U))
+    bp = torch.cat([b, torch.full_like(b[:, :, :3], float("nan"))], 2)
+    x_rows = cr_kernel.solve_tridiag_kernel(Lp, Cp, Up, bp, rows=m, team=team)
+    torch.cuda.synchronize()
+    assert torch.equal(x_rows[:, :, :m], x_alt)
+    assert not x_rows[:, :, m:].any()
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(cuda):
+    model, _, prob, _, q_guess = load_example("pendulum")
+    assert q_guess.is_cuda and prob.q_init.is_cuda
+    leaves = [v for v in vars(model).values() if isinstance(v, torch.Tensor)]
+    assert leaves and all(v.is_cuda for v in leaves)
+
+
+@pytest.mark.cuda
 def test_cr_kernel_raises_on_what_it_does_not_take(cuda):
     L = torch.zeros((1, 2, 4, 4), dtype=torch.float64, device=cuda)
     b = torch.zeros((1, 1, 2, 4), dtype=torch.float64, device=cuda)
@@ -99,6 +144,11 @@ def test_cr_kernel_raises_on_what_it_does_not_take(cuda):
         cr_kernel.solve_tridiag_kernel(L, L, L.transpose(-1, -2), b)
     with pytest.raises(ValueError):
         cr_kernel.solve_tridiag_kernel(L, L, L, b.cpu())
+    with pytest.raises(ValueError):
+        cr_kernel.solve_tridiag_kernel(L, L, L, b, rows=3)
+    big = torch.zeros((1, 1, 120, 120), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):  # three blocks exceed shared memory
+        cr_kernel.solve_tridiag_kernel(big, big, big, big[:, :, 0])
 
 
 @pytest.mark.cuda

@@ -144,6 +144,20 @@ def test_thomas_matches_jax_and_dense(n, k):
     )
 
 
+def _pad_to_power_of_two(L, C, U, b):
+    """The system with identity rows appended up to the next power of two
+    of its row count: the form the TPU kernel reduces."""
+    Bn, R, m, K = b.shape
+    padn = (1 << max(m - 1, 0).bit_length()) - m
+    if padn == 0:
+        return L, C, U, b
+    zero = torch.zeros((Bn, padn, K, K), dtype=C.dtype)
+    eye = torch.eye(K, dtype=C.dtype).expand(Bn, padn, K, K)
+    return (torch.cat([L, zero], dim=1), torch.cat([C, eye], dim=1),
+            torch.cat([U, zero], dim=1),
+            torch.cat([b, torch.zeros((Bn, R, padn, K), dtype=b.dtype)], dim=2))
+
+
 def _cr_case(n, k, dtype, seed, R=3):
     rng = np.random.default_rng(seed)
     Hj, dense = random_spd_penta(n, k, rng)
@@ -177,6 +191,34 @@ def test_cr_reference_cheetah_shape_f64():
     assert _rel(x_ref[0], x_pl) < 1e-10
 
 
+@pytest.mark.parametrize("n,k,R", [(21, 19, 1), (21, 5, 3), (16, 4, 2),
+                                   (8, 3, 1), (2, 2, 1), (161, 2, 1)])
+def test_cr_reference_real_rows_equal_padded_form(n, k, R):
+    """The plain version on the m real rows, on the same rows inside arrays
+    padded to a power of two (``rows=m``), and on the padded system as the
+    TPU kernel reduces it, against each other and the Pallas kernel in
+    interpret mode.  n = 16 and n = 8 give m equal to its power of two."""
+    Hj, Ht, b, xd = _cr_case(n, k, torch.float64, seed=3 * n + k, R=R)
+    L, C, U, bb = cr_kernel._pack(Ht, torch.as_tensor(b)[None])
+    m = C.shape[1]
+    assert m == (n + 1) // 2 and all(X.is_contiguous() for X in (L, C, U, bb))
+    x_real = cr_kernel.solve_tridiag_reference(L, C, U, bb)
+    Lp, Cp, Up, bp = _pad_to_power_of_two(L, C, U, bb)
+    mpow = Cp.shape[1]
+    assert mpow & (mpow - 1) == 0 and m <= mpow < 2 * max(m, 1)
+    x_padded = cr_kernel.solve_tridiag_reference(Lp, Cp, Up, bp)
+    x_rows = cr_kernel.solve_tridiag_reference(Lp, Cp, Up, bp, rows=m)
+    assert x_padded.shape == x_rows.shape == (1, R, mpow, 2 * k)
+    assert _rel(x_real, x_padded[:, :, :m]) < 1e-12
+    assert torch.equal(x_rows[:, :, :m], x_real)
+    assert not x_rows[:, :, m:].any() and not x_padded[:, :, m:].any()
+    x = cr_kernel._unpack(x_real, n, k)[0]
+    assert _rel(x, xd) < 1e-10
+    if n <= 21:
+        x_pl = cr_pallas.solve_many(Hj, jnp.asarray(b), interpret=True)
+        assert _rel(x, x_pl) < 1e-12
+
+
 def test_cr_wrapper_takes_plain_path_on_cpu():
     _, Ht, b, xd = _cr_case(8, 3, torch.float64, seed=2)
     Hb = tpenta.PentaBands(**{f: getattr(Ht, f).expand(2, -1, -1, -1)
@@ -206,4 +248,9 @@ def test_cr_wrapper_rejects_what_the_kernel_does_not_take():
         cr_kernel.solve_tridiag_kernel(L, C, U, bb)  # CPU tensors
     with pytest.raises(ValueError):
         cr_kernel._check_tridiag(L[:, :3], C[:, :3], U[:, :3], bb[:, :, :3])
+    with pytest.raises(ValueError):
+        cr_kernel._check_tridiag(L[:, :3].contiguous(), C, U, bb)  # row counts
+    for rows in (0, 5):  # the system has 4 super-rows
+        with pytest.raises(ValueError):
+            cr_kernel.solve_tridiag_reference(L, C, U, bb, rows=rows)
 

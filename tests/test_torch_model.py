@@ -39,16 +39,16 @@ def _assert_same(a, b, where):
 @pytest.mark.parametrize("name", ["pendulum", "spinner", "mini_cheetah"])
 def test_load_example_matches_converted_jax(name):
     jm, _, jprob, jparams, jqg = jax_load_example(name)
-    model, cfg, prob, params, q_guess = load_example(name)
-    _assert_same(model, convert.model(jm), f"{name}.model")
-    _assert_same(prob, convert.problem(jprob), f"{name}.problem")
+    model, cfg, prob, params, q_guess = load_example(name, device="cpu")
+    _assert_same(model, convert.model(jm, device="cpu"), f"{name}.model")
+    _assert_same(prob, convert.problem(jprob, device="cpu"), f"{name}.problem")
     _assert_same(params, convert.solver_params(jparams), f"{name}.params")
-    _assert_same(q_guess, convert.tensor(jqg), f"{name}.q_guess")
+    _assert_same(q_guess, convert.tensor(jqg, device="cpu"), f"{name}.q_guess")
 
 
 def test_registry_and_model_helpers():
     assert example_names() == ["mini_cheetah", "pendulum", "spinner"]
-    model, _, prob, _, _ = load_example("mini_cheetah")
+    model, _, prob, _, _ = load_example("mini_cheetah", device="cpu")
     assert isinstance(model, Model)
     assert (model.nq, model.nv, model.nu) == (19, 18, 12)
     assert model.unactuated_vdofs == tuple(range(6))
@@ -77,7 +77,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import idto_tpu_torch.ops.cr_kernel\n"
         "import idto_tpu_torch.soa.partials\n"
         "from idto_tpu_torch.examples.registry import load_example\n"
-        "load_example('mini_cheetah')\n"
+        "load_example('mini_cheetah', device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'idto_tpu.')) or m == 'idto_tpu')\n"
         "print(bad)\n"

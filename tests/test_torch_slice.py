@@ -55,7 +55,7 @@ def _assert_stats_match(stats, ref):
 
 
 def _port_solve(name, q_guess, max_iterations):
-    model, _, prob, params, _ = load_example(name)
+    model, _, prob, params, _ = load_example(name, device="cpu")
     params = params.replace(
         max_iterations=max_iterations, verbose=False,
         linear_solver=LinearSolverType.CYCLIC_REDUCTION,

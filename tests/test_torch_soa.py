@@ -60,7 +60,8 @@ def _setup(name):
     qn = qs[:, 1:].reshape(n, jm.nq).T
     return dict(
         jm=jm, jprob=jprob, jc=jparams.contact,
-        tm=convert.model(jm), tprob=convert.problem(jprob),
+        tm=convert.model(jm, device="cpu"),
+        tprob=convert.problem(jprob, device="cpu"),
         tc=convert.solver_params(jparams).contact,
         qs=qs, q=q, v=v, a=a, qn=qn,
     )
