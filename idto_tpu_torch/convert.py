@@ -12,6 +12,8 @@ import torch
 
 from idto_tpu_torch.contact.force import ContactParams
 from idto_tpu_torch.models.model import CollisionGeoms, Model
+from idto_tpu_torch.mpc.controller import MpcCarry
+from idto_tpu_torch.mpc.trajectory_store import CubicSpline, StoredTrajectory
 from idto_tpu_torch.optimizer.problem import (
     ConvergenceTolerances,
     GradientsMethod,
@@ -22,6 +24,7 @@ from idto_tpu_torch.optimizer.problem import (
     SolverMethod,
     SolverParameters,
 )
+from idto_tpu_torch.optimizer.solver import WarmStart
 
 _MODEL_STATIC = (
     "joint_types", "joint_parents", "q_starts", "v_starts", "nq", "nv", "nu",
@@ -70,8 +73,8 @@ def problem(p, dtype=torch.float64, device="cuda") -> ProblemDefinition:
 
 
 def solver_params(s) -> SolverParameters:
-    """Enums map by value; the JAX-only switches (``cr_use_pallas``,
-    ``record_iteration_times``, ``debug_compare_against_dense``) have no
+    """Enums map by value; the JAX-only switches
+    (``record_iteration_times``, ``debug_compare_against_dense``) have no
     counterpart and are dropped."""
     return SolverParameters(
         method=SolverMethod(s.method.value),
@@ -95,4 +98,33 @@ def solver_params(s) -> SolverParameters:
             **{k: float(getattr(s.contact, k)) for k in _CONTACT}
         ),
         verbose=bool(s.verbose),
+        cr_use_pallas=(None if s.cr_use_pallas is None
+                       else bool(s.cr_use_pallas)),
+    )
+
+
+def warm_start(w, dtype=torch.float64, device="cuda") -> WarmStart:
+    """A single-solve WarmStart of the JAX package as a batch of one."""
+    return WarmStart(**{
+        k: tensor(getattr(w, k), dtype, device)[None]
+        for k in ("q", "Delta", "dq", "dqH")
+    })
+
+
+def _spline(s, dtype, device) -> CubicSpline:
+    return CubicSpline(dt=float(s.dt), y=tensor(s.y, dtype, device)[None],
+                       M=tensor(s.M, dtype, device)[None])
+
+
+def mpc_carry(c, dtype=torch.float64, device="cuda") -> MpcCarry:
+    """A single-robot MpcCarry of the JAX package as a batch of one."""
+    st = c.stored
+    return MpcCarry(
+        stored=StoredTrajectory(
+            start_time=tensor(st.start_time, dtype, device),
+            q=_spline(st.q, dtype, device), v=_spline(st.v, dtype, device),
+            u=_spline(st.u, dtype, device),
+        ),
+        Delta=tensor(c.Delta, dtype, device).reshape(1),
+        q_nom=tensor(c.q_nom, dtype, device)[None],
     )

@@ -68,6 +68,17 @@
 //    >= 1, the inverses and the reduced right-hand sides, about as many
 //    bytes as the real input rows; nothing is kept for identity rows, and
 //    an even row of a next level stores only its inverse.
+//  * The R right-hand sides of a row are one (K x K)(K x R) product.  A warp
+//    takes as many of them at a time as its vector space holds: it copies
+//    the vectors of the update from global to shared memory by cp.async
+//    (each lane its share, all copies in flight together), and then spreads
+//    the (r, i) pairs of the result over its 32 lanes, so that a block size
+//    below 32 still keeps every lane busy and no lane waits on global memory
+//    inside a sum.  The host gives that space what shared memory is left beside the
+//    block buffers without giving up a warp, at most 8 KB a warp; one
+//    right-hand side needs 3 ld elements and costs the path of R = 1 one
+//    more __syncwarp() a product than reading the vector from global
+//    memory would.
 //  * Not done: keeping the small levels in shared memory across levels
 //    (the three buffers a warp has are all in use), TMA, and a thread block
 //    cluster per system for batches far below the SM count.
@@ -127,6 +138,15 @@ namespace {
 constexpr int kMaxWarps = 8;
 // Dynamic shared memory a block may use on sm_90 (227 KB).
 constexpr size_t kMaxSmem = 232448;
+
+// Most bytes of shared memory a warp takes for right-hand-side vectors.
+constexpr size_t kVecBytes = 8192;
+
+// Least vector space of a warp, in elements: the back substitution holds
+// the vectors above and below a row and the sum between its two products.
+__host__ __device__ inline int min_vec_elems(int ld) {
+  return (3 * ld + 3) & ~3;
+}
 
 // Rows of levels 1.. of a system of `rows` block rows.
 __host__ __device__ inline int reduced_rows(int rows) {
@@ -517,18 +537,70 @@ struct Level {
 
 // out[r][i] = (base ? base[r][i] : out[r][i]) - sum_k M[i][k] v[r][k] for
 // each right-hand side r; M shared with leading dimension ld, vectors global.
+// The v of as many right-hand sides as vec (shared, vcap elements) holds are
+// staged there, and the (r, i) pairs go over the lanes.  Ends with
+// __syncwarp().
+// sum_k a[k] b[k] over shared memory.  Four products a round on two
+// accumulators: a round's eight loads go out together, where a loop of
+// single steps would wait for each load of a warp that runs alone.
+template <typename T>
+__device__ inline T dot(const T* a, const T* b, int K) {
+  T s0 = T(0), s1 = T(0);
+  int k = 0;
+  for (; k + 4 <= K; k += 4) {
+    const T a0 = a[k], a1 = a[k + 1], a2 = a[k + 2], a3 = a[k + 3];
+    const T b0 = b[k], b1 = b[k + 1], b2 = b[k + 2], b3 = b[k + 3];
+    s0 += a0 * b0;
+    s1 += a1 * b1;
+    s0 += a2 * b2;
+    s1 += a3 * b3;
+  }
+  for (; k < K; ++k) s0 += a[k] * b[k];
+  return s0 + s1;
+}
+
+// vec[r K + k] <- v[(r0 + r) vstride + k] for the n = (count of r) K elements
+// of a group of right-hand sides, the elements over the lanes, by
+// asynchronous copies: a lane's copies are all in flight together, where
+// plain loads would each cost it a trip to memory.  cp_async_wait_all() and
+// __syncwarp() before use.
+template <typename T>
+__device__ inline void stage_vectors(T* vec, const T* v, size_t vstride,
+                                     int r0, int n, int K, int lane) {
+  for (int e = lane; e < n; e += 32) {
+    const int r = e / K;
+    cp_async<(int)sizeof(T)>(vec + e,
+                             v + (size_t)(r0 + r) * vstride + (e - r * K));
+  }
+}
+
+// out[r][i] = (base ? base[r][i] : out[r][i]) - sum_k M[i][k] v[r][k] for
+// each right-hand side r; M shared with leading dimension ld, vectors global.
+// For as many right-hand sides at a time as half of vec (shared, vcap
+// elements) holds, v and the minuend are staged there, and the (r, i) pairs
+// go over the lanes.  Ends with __syncwarp().
 template <typename T>
 __device__ void rhs_update(T* out, size_t ostride, const T* base,
                            size_t bstride, const T* M, int ld, const T* v,
-                           size_t vstride, int K, int R, int lane) {
-  for (int r = 0; r < R; ++r) {
-    for (int i = lane; i < K; i += 32) {
-      T s = T(0);
-      for (int k = 0; k < K; ++k) s += M[i * ld + k] * v[r * vstride + k];
-      const T from = base != nullptr ? base[r * bstride + i]
-                                     : out[r * ostride + i];
-      out[r * ostride + i] = from - s;
+                           size_t vstride, int K, int R, int lane, T* vec,
+                           int vcap) {
+  const int rcap = vcap / (2 * K);
+  T* vv = vec;
+  T* vf = vec + rcap * K;
+  const T* from = base != nullptr ? base : out;
+  const size_t fstride = base != nullptr ? bstride : ostride;
+  for (int r0 = 0; r0 < R; r0 += rcap) {
+    const int n = (R - r0 < rcap ? R - r0 : rcap) * K;
+    stage_vectors<T>(vv, v, vstride, r0, n, K, lane);
+    stage_vectors<T>(vf, from, fstride, r0, n, K, lane);
+    cp_async_wait_all();
+    __syncwarp();
+    for (int e = lane; e < n; e += 32) {
+      const int r = e / K, i = e - r * K;
+      out[(size_t)(r0 + r) * ostride + i] =
+          vf[e] - dot<T>(M + i * ld, vv + r * K, K);
     }
+    __syncwarp();
   }
 }
 
@@ -539,7 +611,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 cr_solve_kernel(const T* __restrict__ L0, const T* __restrict__ C0,
                 const T* __restrict__ U0, const T* __restrict__ b0, T* x,
                 T* work, int batch, int m, int rows, int Karg, int R,
-                int team) {
+                int team, int vcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int K = E::block(Karg);
   const int ld = E::ld(Karg);
@@ -564,14 +636,14 @@ cr_solve_kernel(const T* __restrict__ L0, const T* __restrict__ C0,
     }
   };
 
-  // Per warp: three block buffers (zeroed), a vector of ld elements and
-  // the inversion's exchange space.
-  const int per_warp = 3 * buf + ld + E::ex_elems(Karg);
+  // Per warp: three block buffers (zeroed), the inversion's exchange space
+  // and vcap elements for right-hand-side vectors.
+  const int per_warp = 3 * buf + E::ex_elems(Karg) + vcap;
   T* X = reinterpret_cast<T*>(smem_raw) + (size_t)warp * per_warp;
   T* Y = X + buf;
   T* Z = Y + buf;
-  T* vec = Z + buf;
-  T* ex = vec + ld;
+  T* ex = Z + buf;
+  T* vec = ex + E::ex_elems(Karg);
   for (int e = lane; e < 3 * buf; e += 32) X[e] = T(0);
   __syncwarp();
 
@@ -661,7 +733,7 @@ cr_solve_kernel(const T* __restrict__ L0, const T* __restrict__ C0,
       if (has_L) eng.load(X, Lev);
       eng.load(Y, Uev);
       rhs_update<T>(bj, nxt.bstride, b_od, cur.bstride, Z, ld, b_ev,
-                    cur.bstride, K, R, lane);
+                    cur.bstride, K, R, lane, vec, vcap);
       eng.wait();
       // L' = -alpha L_even
       if (has_L) eng.mm(Lj, true, Z, X, nullptr, true);
@@ -679,7 +751,7 @@ cr_solve_kernel(const T* __restrict__ L0, const T* __restrict__ C0,
         if (has_U) eng.load(X, Ube);
         eng.load(Y, Lbe);
         rhs_update<T>(bj, nxt.bstride, nullptr, 0, Z, ld, b_be, cur.bstride,
-                      K, R, lane);
+                      K, R, lane, vec, vcap);
         eng.wait();
         // U' = -beta U_below;  C' -= beta L_below
         if (has_U) eng.mm(Uj, true, Z, X, nullptr, true);
@@ -711,28 +783,34 @@ cr_solve_kernel(const T* __restrict__ L0, const T* __restrict__ C0,
       const T* x_above = above ? xs + ((size_t)(2 * j) * step - 1) * K : xs;
       const T* x_below = xs + ((size_t)(2 * j + 2) * step - 1) * K;
       T* x_out = xs + ((size_t)(2 * j + 1) * step - 1) * K;
-      for (int r = 0; r < R; ++r) {
-        for (int i = lane; i < K; i += 32) {
-          T t = b_ev[r * cur.bstride + i];
-          if (above) {
-            T s = T(0);
-            for (int k = 0; k < K; ++k)
-              s += X[i * ld + k] * x_above[r * xstride + k];
-            t -= s;
-          }
-          if (below) {
-            T s = T(0);
-            for (int k = 0; k < K; ++k)
-              s += Y[i * ld + k] * x_below[r * xstride + k];
-            t -= s;
-          }
-          vec[i] = t;
+      // x = Cinv (b - L x_above - U x_below) for as many right-hand sides
+      // at a time as a third of vec holds: their x_above, x_below and b are
+      // staged in va, vb and vt, the bracket replaces b in vt, the (r, i)
+      // pairs go over the lanes.
+      const int rcap = vcap / (3 * K);
+      T* va = vec;
+      T* vb = va + rcap * K;
+      T* vt = vb + rcap * K;
+      for (int r0 = 0; r0 < R; r0 += rcap) {
+        const int n = (R - r0 < rcap ? R - r0 : rcap) * K;
+        if (above) stage_vectors<T>(va, x_above, xstride, r0, n, K, lane);
+        if (below) stage_vectors<T>(vb, x_below, xstride, r0, n, K, lane);
+        stage_vectors<T>(vt, b_ev, cur.bstride, r0, n, K, lane);
+        cp_async_wait_all();
+        __syncwarp();
+        // Each lane rewrites the elements of vt it staged itself.
+        for (int e = lane; e < n; e += 32) {
+          const int r = e / K, i = e - r * K;
+          T t = vt[e];
+          if (above) t -= dot<T>(X + i * ld, va + r * K, K);
+          if (below) t -= dot<T>(Y + i * ld, vb + r * K, K);
+          vt[e] = t;
         }
         __syncwarp();
-        for (int i = lane; i < K; i += 32) {
-          T s = T(0);
-          for (int k = 0; k < K; ++k) s += Z[i * ld + k] * vec[k];
-          x_out[r * xstride + i] = s;
+        for (int e = lane; e < n; e += 32) {
+          const int r = e / K, i = e - r * K;
+          x_out[(size_t)(r0 + r) * xstride + i] =
+              dot<T>(Z + i * ld, vt + r * K, K);
         }
         __syncwarp();
       }
@@ -752,13 +830,22 @@ template <typename T, typename E>
 int launch_engine(const T* L, const T* C, const T* U, const T* b, T* x,
                   T* work, int batch, int m, int rows, int K, int R, int team,
                   cudaStream_t stream) {
-  const size_t per_warp = (3 * (size_t)E::buf_elems(K) + (size_t)E::ld(K) +
-                           (size_t)E::ex_elems(K)) *
-                          sizeof(T);
-  // As many warps a block as fit in shared memory, at most kMaxWarps.
-  int warps = (int)(kMaxSmem / per_warp);
+  // A warp's shared memory: three block buffers, the exchange space and
+  // the right-hand-side vectors.  As many warps a block as fit with the
+  // least vector space, at most kMaxWarps; then the vectors get what is
+  // left to a warp, as far as R right-hand sides use it and kVecBytes allow.
+  const size_t fixed =
+      (3 * (size_t)E::buf_elems(K) + (size_t)E::ex_elems(K)) * sizeof(T);
+  const size_t vmin = (size_t)min_vec_elems(E::ld(K)) * sizeof(T);
+  int warps = (int)(kMaxSmem / (fixed + vmin));
   if (warps < 1) return (int)cudaErrorInvalidValue;
   if (warps > kMaxWarps) warps = kMaxWarps;
+  size_t vbytes = 3 * (size_t)R * K * sizeof(T);
+  if (vbytes > kVecBytes) vbytes = kVecBytes;
+  if (vbytes > kMaxSmem / warps - fixed) vbytes = kMaxSmem / warps - fixed;
+  if (vbytes < vmin) vbytes = vmin;
+  const int vcap = (int)(vbytes / sizeof(T)) & ~3;
+  const size_t per_warp = fixed + (size_t)vcap * sizeof(T);
   if (team <= 0) {
     // As many warps to a system as the card has to spare: all of a block's
     // for a batch below the count of SMs, one when every warp of the card
@@ -781,7 +868,7 @@ int launch_engine(const T* L, const T* C, const T* U, const T* b, T* x,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   cr_solve_kernel<T, E><<<blocks, warps * 32, smem, stream>>>(
-      L, C, U, b, x, work, batch, m, rows, K, R, team);
+      L, C, U, b, x, work, batch, m, rows, K, R, team, vcap);
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from idto_tpu_torch.utils.consts import const
+
+
+# -epsilon_ijk with the sign that makes skew(a) u = a x u.
+_LEVI = np.zeros((3, 3, 3))
+for _i, _j, _k in ((0, 1, 2), (1, 2, 0), (2, 0, 1)):
+    _LEVI[_i, _j, _k] = -1.0
+    _LEVI[_j, _i, _k] = 1.0
+
 
 def _stack2(rows):
     return torch.stack([torch.stack(r, dim=0) for r in rows], dim=0)
+
+
+def quat_mul(a, b):
+    """Hamilton product a*b of (4, ...) quaternions (broadcasting over the
+    trailing axes)."""
+    aw, ax, ay, az = a[0], a[1], a[2], a[3]
+    bw, bx, by, bz = b[0], b[1], b[2], b[3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=0)
+
+
+def quat_conj(q):
+    return torch.cat([q[:1], -q[1:4]], dim=0)
+
+
+def normalize_quat(q):
+    return q / torch.linalg.vector_norm(q, dim=0, keepdim=True)
 
 
 def quat_to_rot(q):
@@ -50,11 +80,8 @@ def quat_rate_pinv(q):
 
 def skew(axes):
     """(3, ...) vectors -> (3, 3, ...) skew matrices (skew(a) u = a x u)."""
-    levi = torch.zeros((3, 3, 3), dtype=axes.dtype, device=axes.device)
-    for i, j, k in ((0, 1, 2), (1, 2, 0), (2, 0, 1)):
-        levi[i, j, k] = -1.0
-        levi[j, i, k] = 1.0
-    return torch.einsum("ijk,k...->ij...", levi, axes)
+    return torch.einsum("ijk,k...->ij...",
+                        const(_LEVI, axes.device, axes.dtype), axes)
 
 
 def axis_angle_to_rot(axes, angles):

@@ -4,11 +4,13 @@ version (counterpart of ``idto_tpu/ops/cr_pallas.py``).
 
 ``solve_many(H, rhs)`` packs each penta-diagonal system into a
 block-tridiagonal one of m = ceil(n/2) super-rows 2k wide
-(``ops/cyclic_reduction``), runs the reduction and unpacks.  On a CUDA
-tensor it launches the kernel -- one team of warps per system (a whole
-block down to a single warp, by the batch), one warp per block task, one
-launch per call -- and on a CPU tensor it runs
-``solve_many_reference``, the same math in plain PyTorch.  Any other
+(``ops/cyclic_reduction``), runs the reduction for all R right-hand sides
+and unpacks; ``solve_tridiag`` takes a system that is block-tridiagonal
+already (the tail of the hybrid level-wise reduction).  On a CUDA tensor
+they launch the kernel -- one team of warps per system (a whole block down
+to a single warp, by the batch), one warp per block task, one launch per
+call whatever R -- and on a CPU tensor they run
+``solve_tridiag_reference``, the same math in plain PyTorch.  Any other
 device, dtype or shape raises; there is no fallback.
 
 The reduction is the one of a system padded with identity rows to a power
@@ -226,7 +228,10 @@ def solve_tridiag_kernel(L, C, U, b, rows=None, team=0):
             raise ValueError("L, C, U, b must be 16-byte aligned")
     lib = _load()
     if not lib.cr_has_tiles(K):
-        smem = (3 * (K * K + (K * K) % 2) + 3 * K) * L.element_size()
+        # One warp's buffers of the run-time-K engine: three blocks, the
+        # exchange space and the least right-hand-side vector space.
+        smem = (3 * (K * K + (K * K) % 2) + 2 * K
+                + ((3 * K + 3) & ~3)) * L.element_size()
         if smem > _MAX_SMEM:
             raise ValueError(f"block size K={K} needs {smem} B of shared "
                              f"memory a warp")
@@ -246,6 +251,17 @@ def solve_tridiag_kernel(L, C, U, b, rows=None, team=0):
         raise RuntimeError(f"cr_solve kernel launch failed: CUDA error {err}")
     launches += 1
     return x
+
+
+def solve_tridiag(L, C, U, b, rows=None):
+    """The fused reduction of (L, C, U) (B, m, K, K), b (B, R, m, K): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if b.device.type == "cpu":
+        _check_tridiag(L, C, U, b)
+        return solve_tridiag_reference(L, C, U, b, rows)
+    if not b.is_cuda:
+        raise ValueError(f"no cyclic-reduction solve for device {b.device}")
+    return solve_tridiag_kernel(L, C, U, b, rows)
 
 
 def _check_tridiag(L, C, U, b):
@@ -301,9 +317,5 @@ def solve_many(H: PentaBands, rhs):
     """Solve H X = rhs for bands (B, n, k, k) and rhs (B, R, n, k) in one
     fused cyclic reduction per system: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    if rhs.device.type == "cpu":
-        return solve_many_reference(H, rhs)
-    if not rhs.is_cuda:
-        raise ValueError(f"no cyclic-reduction solve for device {rhs.device}")
     n, k = rhs.shape[-2], rhs.shape[-1]
-    return _unpack(solve_tridiag_kernel(*_pack(H, rhs)), n, k)
+    return _unpack(solve_tridiag(*_pack(H, rhs)), n, k)

@@ -164,28 +164,36 @@ def factorization_status(F: PentaFactorization):
     return ok
 
 
-def solve_factorized(F: PentaFactorization, b):
-    """Solve H x = b given the factorization; b of shape (..., n, k)."""
-    n = b.shape[-2]
-    zero = torch.zeros_like(b[..., 0, :])
-
-    def mv(M, y):
-        return (M @ y[..., None])[..., 0]
-
+def _substitute(F: PentaFactorization, b):
+    """Forward and back substitution with the right-hand sides as columns:
+    b (..., n, k, R) -> x (..., n, k, R)."""
+    n = b.shape[-3]
+    zero = torch.zeros_like(b[..., 0, :, :])
     y1 = y2 = zero
     ys = []
     for i in range(n):
-        y = b[..., i, :] - mv(F.L1[..., i, :, :], y1) - mv(F.L2[..., i, :, :], y2)
+        y = b[..., i, :, :] - F.L1[..., i, :, :] @ y1 - F.L2[..., i, :, :] @ y2
         ys.append(y)
         y1, y2 = y, y1
     x1 = x2 = zero
     xs = [None] * n
     for i in reversed(range(n)):
-        rhs = ys[i] - mv(F.Dp[..., i, :, :], x1) - mv(F.Ep[..., i, :, :], x2)
-        x = _solve(F.Cp[..., i, :, :], rhs[..., None])[..., 0]
+        rhs = ys[i] - F.Dp[..., i, :, :] @ x1 - F.Ep[..., i, :, :] @ x2
+        x = _solve(F.Cp[..., i, :, :], rhs)
         xs[i] = x
         x1, x2 = x, x1
-    return torch.stack(xs, dim=-2)
+    return torch.stack(xs, dim=-3)
+
+
+def solve_factorized(F: PentaFactorization, b):
+    """Solve H x = b given the factorization; b of shape (..., n, k)."""
+    return _substitute(F, b[..., None])[..., 0]
+
+
+def solve_factorized_many(F: PentaFactorization, b):
+    """Solve H X = b for a stack of right-hand sides b (..., R, n, k); each
+    block solve takes the R vectors as the columns of one matrix."""
+    return _substitute(F, b.movedim(-3, -1)).movedim(-1, -3)
 
 
 def solve(H: PentaBands, b):

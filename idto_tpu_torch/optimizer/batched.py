@@ -30,20 +30,20 @@ from idto_tpu_torch.optimizer.solver import (
     SolverFlag,
     Stats,
     WarmStart,
-    _ball,
     _bcast,
     _bnorm,
     _bsum,
     _dogleg,
     _LoopState,
+    _newton_tail,
     _prepare_from_physics,
     _use_cr,
-    containment_rtol,
 )
 from idto_tpu_torch.soa import contact as soa_contact
 from idto_tpu_torch.soa import partials as soa_partials
 from idto_tpu_torch.soa import rollout
 from idto_tpu_torch.soa.kinematics import normalize_quaternions
+from idto_tpu_torch.utils.consts import index
 
 
 def can_solve_batched_native(model: Model, params: SolverParameters) -> bool:
@@ -103,28 +103,49 @@ def _prepare_batched(model, probs, params, qs, D_prev):
     )
 
 
+def _merit_at_batched(model, probs, params, q_try, lam):
+    """(merit, cost) at q_try with frozen multipliers, whole batch:
+    phi = L + h^T lam_k."""
+    contact = params.contact
+    tau, v = rollout.generalized_forces(model, probs, contact, q_try)
+    cost = rollout.cost(model, probs, contact, q_try, tau=tau, v=v)
+    if lam.shape[-1] > 0:
+        unact = model.unactuated_vdofs
+        h = tau[:, :, index(unact, tau.device)].reshape(tau.shape[0], -1)
+        return cost + _bsum(h * lam), cost
+    return cost, cost
+
+
 def _rescue_degraded_solves(params: SolverParameters, prep):
     """Second-chance Thomas solve for scenarios whose cyclic-reduction
-    Newton step failed the residual acceptance.  Scenarios whose re-solve
-    passes the same acceptance get their Newton step and solve_ok back;
-    the rest keep the Cauchy fallback."""
+    Newton step failed the residual acceptance.  The whole tail is solved
+    again from a Thomas factor of the same scaled Hessian: under equality
+    constraints that is the multipliers, the merit and the merit gradient
+    as well as the step, since all of them came from the degraded solve
+    (the JAX package re-solves the step alone and reports the scenario
+    healthy).  Scenarios whose re-solve passes the acceptance take every one
+    of these from it and get solve_ok back; the rest keep the Cauchy
+    fallback."""
     if not _use_cr(params):
         return prep  # Thomas is already the primary solver
     # Host sync: the batch-level branch reads one flag from the device.
     if not bool(torch.any(~prep.solve_ok)):
         return prep
-    dtype = prep.p_newton.dtype
-    x = -penta.solve(prep.H, prep.g_merit)
-    res = penta.matvec(prep.H, x) + prep.g_merit
-    rel = _bnorm(res) / torch.sqrt(
-        torch.clamp_min(_bsum(prep.g_merit * prep.g_merit),
-                        torch.finfo(dtype).tiny)
+    factor = penta.factorize(prep.H)
+    alt = _newton_tail(
+        prep.cost, prep.D, prep.H, prep.gs, prep.h, prep.Js, factor,
+        penta.factorization_status(factor),
     )
-    ok = _ball(torch.isfinite(x)) & (rel < containment_rtol(dtype))
-    use_t = ~prep.solve_ok & ok
+    use_t = ~prep.solve_ok & alt.solve_ok
+
+    def pick(name):
+        new, old = getattr(alt, name), getattr(prep, name)
+        return torch.where(_bcast(use_t, new), new, old)
+
     return prep._replace(
-        p_newton=torch.where(_bcast(use_t, x), x, prep.p_newton),
         solve_ok=prep.solve_ok | use_t,
+        **{name: pick(name) for name in
+           ("p_newton", "p_cauchy", "g_merit", "merit", "lam")},
     )
 
 
@@ -162,13 +183,9 @@ def solve_trust_region_batched(
         q_try = s.q + dq
         if params.normalize_quaternions:
             q_try = normalize_quaternions(model, q_try)
-        tau_try, v_try = rollout.generalized_forces(
-            model, probs, params.contact, q_try
+        merit_try, cost_try = _merit_at_batched(
+            model, probs, params, q_try, prep.lam
         )
-        cost_try = rollout.cost(
-            model, probs, params.contact, q_try, tau=tau_try, v=v_try
-        )
-        merit_try = cost_try  # no multipliers without equality constraints
         Hdq = penta.matvec(prep.H, dq_scaled)
         predicted = -_bsum(prep.g_merit * dq_scaled) - 0.5 * _bsum(
             dq_scaled * Hdq
@@ -202,7 +219,7 @@ def solve_trust_region_batched(
             dqH_norm=put(st.dqH_norm, _bnorm(prep.p_newton)),
             grad_norm=put(st.grad_norm, _bnorm(prep.g_merit)),
             dL_dq=put(st.dL_dq, _bsum(prep.g_merit * dq_scaled) / prep.cost),
-            h_norm=put(st.h_norm, torch.zeros_like(prep.cost)),
+            h_norm=put(st.h_norm, _bnorm(prep.h)),
             merit=put(st.merit, prep.merit),
         )
 

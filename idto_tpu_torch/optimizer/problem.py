@@ -3,14 +3,14 @@
 
 Cost weights are diagonal vectors.  ``ProblemDefinition`` tensors may carry
 a leading scenario axis (see ``parallel.batching.broadcast_problem``).
-The port has no ``cr_use_pallas`` switch: ``CYCLIC_REDUCTION`` on a CUDA
-tensor always runs the hand-written kernel (``ops/cr_kernel.py``).
+``cr_use_pallas`` keeps the JAX package's name and documented meaning; here
+it picks among the cyclic-reduction routes of ``optimizer/solver.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -99,6 +99,13 @@ class SolverParameters:
     )
     contact: ContactParams = dataclasses.field(default_factory=ContactParams)
     verbose: bool = False
+    # Route of CYCLIC_REDUCTION.  None: the fused kernel (one launch per
+    # solve, ops/cr_kernel.py).  False: level-wise cyclic reduction
+    # (ops/cyclic_reduction.py), one factorization reused by every solve of
+    # the iteration, no kernel.  True: the fused kernel up to 64 packed
+    # super-rows, beyond that the hybrid: level-wise down to 64 rows, then
+    # the kernel on the tail.
+    cr_use_pallas: Optional[bool] = None
 
     def replace(self, **updates):
         return dataclasses.replace(self, **updates)

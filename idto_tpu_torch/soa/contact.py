@@ -21,6 +21,7 @@ import torch
 from idto_tpu_torch.models.model import GeomType, Model
 from idto_tpu_torch.soa import mat3
 from idto_tpu_torch.soa.kinematics import body_velocities
+from idto_tpu_torch.utils.consts import const
 
 _EPS = 1e-12
 
@@ -221,7 +222,7 @@ def box_vs_box(params_a, R_a, p_a, params_b, R_b, p_b):
     """Box-box distance with the JAX package's candidate set and tie
     breaking: params (3, P, 1), R (3, 3, P, N), p (3, P, N)."""
     dtype, device = R_a.dtype, R_a.device
-    cand = torch.as_tensor(_box_candidates_np(), dtype=dtype, device=device)
+    cand = const(_box_candidates_np(), device, dtype)
     half_a = params_a[:3]
     half_b = params_b[:3]
     # (3, 14, 1, 1) * (3, 1, P, 1) -> (3, 14, P, 1)
@@ -242,7 +243,7 @@ def box_vs_box(params_a, R_a, p_a, params_b, R_b, p_b):
     cand_b = _argmin_select(phi_b, n_b, wb_b, wc_b)
     best = _select(cand_b[0] < best[0], cand_b, best)
 
-    edges = torch.as_tensor(_box_edges_np(), dtype=dtype, device=device)
+    edges = const(_box_edges_np(), device, dtype)
 
     def edge_world(which, R, p, half):
         # (3, 12, 1, 1) * (3, 1, P, 1) -> (3, 12, P, 1)
@@ -300,8 +301,8 @@ def contact_wrenches(model: Model, q, v, params):
     R_l, p_l, w_l, pd_l = body_velocities(model, q, v)
 
     bodies = np.asarray(geoms.bodies)
-    body_idx = torch.as_tensor(np.maximum(bodies, 0), device=device)
-    is_world = torch.as_tensor(bodies < 0, device=device)[None, :, None]
+    body_idx = const(np.maximum(bodies, 0), device)
+    is_world = const(bodies < 0, device)[None, :, None]
     eye = torch.eye(3, dtype=dtype, device=device)[:, :, None, None]
     zero = _c(q, 0.0)
     Rg_b = torch.where(is_world[None], eye, R_l[:, :, body_idx, :])
@@ -334,8 +335,8 @@ def contact_wrenches(model: Model, q, v, params):
     for (ta, tb), pairs in groups.items():
         ia_np = np.array([p[0] for p in pairs])
         ib_np = np.array([p[1] for p in pairs])
-        ia = torch.as_tensor(ia_np, device=device)
-        ib = torch.as_tensor(ib_np, device=device)
+        ia = const(ia_np, device)
+        ib = const(ib_np, device)
         # Pair axis after the components: R (3, 3, P, N), p (3, P, N),
         # params (3, P, 1).
         phi, nhat, wa, wb = _pair_distance(
@@ -381,8 +382,8 @@ def contact_wrenches(model: Model, q, v, params):
                 S_a[bodies[ia_np[pi]], pi] = 1.0
             if bodies[ib_np[pi]] >= 0:
                 S_b[bodies[ib_np[pi]], pi] = 1.0
-        S_a = torch.as_tensor(S_a, dtype=dtype, device=device)
-        S_b = torch.as_tensor(S_b, dtype=dtype, device=device)
+        S_a = const(S_a, device, dtype)
+        S_b = const(S_b, device, dtype)
         torques = torques + torch.einsum("lp,cpn->cln", S_a, tq_a) \
             + torch.einsum("lp,cpn->cln", S_b, tq_b)
         forces = forces + torch.einsum("lp,cpn->cln", S_a, -f_on_b) \

@@ -22,10 +22,8 @@ from idto_tpu_torch.models.rotations import (
     quat_to_rot,
 )
 from idto_tpu_torch.soa import mat3
-
-
-def _idx(ix, device):
-    return torch.as_tensor(np.asarray(ix, dtype=np.int64), device=device)
+from idto_tpu_torch.utils.consts import const
+from idto_tpu_torch.utils.consts import index as _idx
 
 
 def local_transforms(model: Model, q):
@@ -58,7 +56,7 @@ def local_transforms(model: Model, q):
             # q = [x, y, theta] in the aligned joint frame (z == axis).
             qi = _idx(qs, device)
             xy = torch.stack([q[qi], q[qi + 1]], dim=0)  # (2, g, N)
-            zaxes = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+            zaxes = const(np.array([0.0, 0.0, 1.0]), device, dtype)
             R_g = axis_angle_to_rot(zaxes[:, None].expand(3, g), q[qi + 2])
             p_g = torch.cat(
                 [xy, torch.zeros((1, g, N), dtype=dtype, device=device)], dim=0
@@ -186,7 +184,7 @@ def nplus_matrix(model: Model, q):
         else:
             for i in range(model.joint_nv(j)):
                 base[model.v_starts[j] + i, model.q_starts[j] + i] = 1.0
-    Np = torch.as_tensor(base, dtype=dtype, device=device)[:, :, None].expand(
+    Np = const(base, device, dtype)[:, :, None].expand(
         model.nv, model.nq, N
     )
     for j in _floating_joints(model):

@@ -26,6 +26,7 @@ from idto_tpu_torch.models.model import Model
 from idto_tpu_torch.optimizer.partials import IdPartials
 from idto_tpu_torch.soa import contact as soa_contact
 from idto_tpu_torch.soa import kinematics as soa_kin
+from idto_tpu_torch.utils.consts import const
 
 
 def _jac_rows(f, x, dim):
@@ -58,7 +59,7 @@ def id_partials_batched(model: Model, prob, contact_params, qs) -> IdPartials:
     qt = qs[:, 0:T].reshape(n, nq).T
     qp = qs[:, 1 : T + 1].reshape(n, nq).T
 
-    is_t0 = torch.as_tensor(np.tile(np.arange(T), B) == 0, device=device)
+    is_t0 = const(np.tile(np.arange(T), B) == 0, device)
 
     v_init = prob.v_init.to(dtype).reshape(-1, nv)[:, None, :].expand(
         B, T, nv

@@ -2,7 +2,7 @@
 """Time the port's cyclic-reduction kernel on one NVIDIA GPU.
 
     python3 scripts/bench_torch_cr.py [--package-root DIR] [--shapes cheetah,long]
-                                      [--out FILE.json]
+                                      [--rhs R] [--out FILE.json]
 
 For each shape and batch it prints one JSON line with the kernel's time on
 packed inputs (``solve_tridiag_kernel``), the time of ``solve_many`` (pack,
@@ -24,11 +24,17 @@ import subprocess
 import sys
 
 SHAPES = {
-    # name: (n block rows, k, batches)
-    "cheetah": (21, 19, (1, 256, 4096)),
-    "long": (161, 19, (1, 64)),
-    "longer": (641, 19, (1, 16)),
-    "runtime_k": (21, 5, (256,)),
+    # name: (n block rows, k, batches, right-hand sides)
+    "cheetah": (21, 19, (1, 256, 4096), 1),
+    "long": (161, 19, (1, 64), 1),
+    "longer": (641, 19, (1, 16), 1),
+    "runtime_k": (21, 5, (256,), 1),
+    # The equality-constraint Schur solves (T = 40, R = n_h + 1): hopper
+    # (K = 10), spinner (K = 6), airhockey (K = 12).
+    "hopper": (41, 5, (1, 256), 121),
+    "hopper_newton": (41, 5, (1, 256), 1),  # the same iteration's Newton step
+    "spinner": (41, 3, (1, 256), 41),
+    "airhockey": (41, 6, (1, 256), 121),
 }
 
 
@@ -45,6 +51,8 @@ def main(argv=None):
     ap.add_argument("--team", type=int, default=None,
                     help="warps that share one system (default: the "
                          "kernel's own choice)")
+    ap.add_argument("--rhs", type=int, default=None,
+                    help="right-hand sides, in place of the shapes' own")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -76,10 +84,11 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = []
     for name in args.shapes.split(","):
-        n, k, batches = SHAPES[name]
+        n, k, batches, R = SHAPES[name]
+        R = args.rhs or R
         for batch in batches:
             H = random_spd_penta(batch, n, k, dtype, gen)
-            rhs = torch.randn((batch, 1, n, k), generator=gen,
+            rhs = torch.randn((batch, R, n, k), generator=gen,
                               dtype=torch.float64, device="cuda").to(dtype)
             packed = cr_kernel._pack(H, rhs)
             x = cr_kernel._unpack(
@@ -87,7 +96,7 @@ def main(argv=None):
             nd = min(batch, 8)
             dense = penta.to_dense(H.to(dtype=torch.float64))[:nd]
             xd = torch.linalg.solve(
-                dense, rhs[:nd].double().reshape(nd, 1, -1).transpose(1, 2)
+                dense, rhs[:nd].double().reshape(nd, R, -1).transpose(1, 2)
             ).transpose(1, 2).reshape(rhs[:nd].shape)
             err = float((x[:nd].double() - xd).abs().max() / xd.abs().max())
             k_ms = cuda_time_ms(
@@ -97,7 +106,7 @@ def main(argv=None):
             k2_ms = cuda_time_ms(
                 lambda: cr_kernel.solve_tridiag_kernel(*packed, **opts), args.reps)
             row = {"tag": args.tag, **opts, "shape": name, "n": n, "k": k,
-                   "batch": batch, "dtype": args.dtype,
+                   "batch": batch, "R": R, "dtype": args.dtype,
                    "packed_rows": int(packed[1].shape[1]),
                    "kernel_ms": [k_ms, k2_ms], "path_ms": path_ms,
                    "rel_err_vs_dense": err, "card": smi}

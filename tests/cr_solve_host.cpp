@@ -12,7 +12,8 @@ namespace {
 
 template <typename T, typename E>
 void run(const T* L, const T* C, const T* U, const T* b, T* x, T* work,
-         int batch, int m, int rows, int K, int R, int warps, int team) {
+         int batch, int m, int rows, int K, int R, int warps, int team,
+         int vcap) {
   const int per_block = warps / team;
   const int blocks = (batch + per_block - 1) / per_block;
   for (int blk = 0; blk < blocks; ++blk) {
@@ -31,7 +32,8 @@ void run(const T* L, const T* C, const T* U, const T* b, T* x, T* work,
         blockIdx = {blk, 0, 0};
         blockDim = {warps * 32, 1, 1};
         this_warp = ws[tid / 32].get();
-        cr_solve_kernel<T, E>(L, C, U, b, x, work, batch, m, rows, K, R, team);
+        cr_solve_kernel<T, E>(L, C, U, b, x, work, batch, m, rows, K, R, team,
+                              vcap);
       });
     for (auto& th : threads) th.join();
   }
@@ -40,28 +42,33 @@ void run(const T* L, const T* C, const T* U, const T* b, T* x, T* work,
 template <typename T, typename E>
 int run_checked(const T* L, const T* C, const T* U, const T* b, T* x, T* work,
                 int batch, int m, int rows, int K, int R, int warps,
-                int team) {
+                int team, int vecs) {
+  // Room for `vecs` right-hand sides at a time in the back substitution
+  // (0: the least a warp may have, one at a time).
+  const int vmin = min_vec_elems(E::ld(K));
+  const int vcap = 3 * vecs * K > vmin ? (3 * vecs * K + 3) & ~3 : vmin;
   const size_t bytes = (size_t)warps * sizeof(T) *
-                       (3 * E::buf_elems(K) + E::ld(K) + E::ex_elems(K));
+                       (3 * E::buf_elems(K) + E::ex_elems(K) + vcap);
   if (bytes > sizeof(smem_raw)) return 1;
-  run<T, E>(L, C, U, b, x, work, batch, m, rows, K, R, warps, team);
+  run<T, E>(L, C, U, b, x, work, batch, m, rows, K, R, warps, team, vcap);
   return 0;
 }
 
 template <typename T>
 int dispatch(const T* L, const T* C, const T* U, const T* b, T* x, T* work,
-             int batch, int m, int rows, int K, int R, int warps, int team) {
+             int batch, int m, int rows, int K, int R, int warps, int team,
+             int vecs) {
   if (K == 2)
     return run_checked<T, TileEngine<T, 2>>(L, C, U, b, x, work, batch, m,
-                                            rows, K, R, warps, team);
+                                            rows, K, R, warps, team, vecs);
   if (K == 6)
     return run_checked<T, TileEngine<T, 6>>(L, C, U, b, x, work, batch, m,
-                                            rows, K, R, warps, team);
+                                            rows, K, R, warps, team, vecs);
   if (K == 38)
     return run_checked<T, TileEngine<T, 38>>(L, C, U, b, x, work, batch, m,
-                                             rows, K, R, warps, team);
+                                             rows, K, R, warps, team, vecs);
   return run_checked<T, PlainEngine<T>>(L, C, U, b, x, work, batch, m, rows,
-                                        K, R, warps, team);
+                                        K, R, warps, team, vecs);
 }
 
 }  // namespace
@@ -74,16 +81,16 @@ size_t host_work_elems(int rows, int K, int R) {
 
 int host_solve_f64(const double* L, const double* C, const double* U,
                    const double* b, double* x, double* work, int batch, int m,
-                   int rows, int K, int R, int warps, int team) {
+                   int rows, int K, int R, int warps, int team, int vecs) {
   return dispatch<double>(L, C, U, b, x, work, batch, m, rows, K, R, warps,
-                          team);
+                          team, vecs);
 }
 
 int host_solve_f32(const float* L, const float* C, const float* U,
                    const float* b, float* x, float* work, int batch, int m,
-                   int rows, int K, int R, int warps, int team) {
+                   int rows, int K, int R, int warps, int team, int vecs) {
   return dispatch<float>(L, C, U, b, x, work, batch, m, rows, K, R, warps,
-                         team);
+                         team, vecs);
 }
 
 }  // extern "C"

@@ -41,7 +41,7 @@ def host_lib(tmp_path_factory):
     lib.host_work_elems.argtypes = [ctypes.c_int] * 3
     lib.host_work_elems.restype = ctypes.c_size_t
     for fn in (lib.host_solve_f64, lib.host_solve_f32):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         fn.restype = ctypes.c_int
     return lib
 
@@ -58,14 +58,16 @@ def _system(B, m, K, R, dtype, seed):
     return [X.to(dtype).contiguous() for X in (L, C, U, b)]
 
 
-def _host_solve(lib, L, C, U, b, rows, warps, team):
+def _host_solve(lib, L, C, U, b, rows, warps, team, vecs=0):
+    """``vecs``: right-hand sides a warp's vector space holds at a time in
+    the back substitution (0: the least the launcher ever gives, one)."""
     B, R, m, K = b.shape
     x = torch.full_like(b, float("nan"))
     work = torch.full((B * lib.host_work_elems(rows, K, R),), float("nan"),
                       dtype=b.dtype)
     fn = lib.host_solve_f64 if b.dtype == torch.float64 else lib.host_solve_f32
     rc = fn(L.data_ptr(), C.data_ptr(), U.data_ptr(), b.data_ptr(),
-            x.data_ptr(), work.data_ptr(), B, m, rows, K, R, warps, team)
+            x.data_ptr(), work.data_ptr(), B, m, rows, K, R, warps, team, vecs)
     assert rc == 0
     return x
 
@@ -105,6 +107,35 @@ def test_kernel_source_matches_plain_version(host_lib, B, m, rows, K, R,
     assert bool(torch.isfinite(x).all())
     assert float((x - x_plain).abs().max() / x_plain.abs().max()) < tol
     assert not x[:, :, rows:].any()
+
+
+# The equality-constraint Schur solve: R = n_h + 1 right-hand sides in one
+# launch.  (B, rows, K, R, dtype, warps, team, vecs): the hopper (K=10,
+# run-time-K engine), the spinner (K=6, register tiles) and the airhockey
+# shape (K=12), with vector space for one right-hand side at a time, for a
+# few (R is no multiple of it) and for all of them.
+_MANY_RHS_CASES = [
+    (2, 21, 10, 121, torch.float64, 4, 2, 0),
+    (2, 21, 10, 121, torch.float64, 8, 4, 34),
+    (1, 21, 10, 121, torch.float64, 4, 4, 121),
+    (3, 21, 10, 121, torch.float32, 8, 1, 68),
+    (2, 21, 6, 41, torch.float64, 8, 2, 0),
+    (2, 21, 6, 41, torch.float64, 8, 8, 41),
+    (2, 21, 6, 41, torch.float32, 4, 4, 7),
+    (1, 21, 12, 121, torch.float64, 6, 3, 28),
+    (1, 11, 38, 5, torch.float64, 5, 5, 3),
+]
+
+
+@pytest.mark.parametrize("B,rows,K,R,dtype,warps,team,vecs", _MANY_RHS_CASES)
+def test_kernel_source_with_many_right_hand_sides(host_lib, B, rows, K, R,
+                                                  dtype, warps, team, vecs):
+    L, C, U, b = _system(B, rows, K, R, dtype, seed=rows * 100 + K + R)
+    x = _host_solve(host_lib, L, C, U, b, rows, warps, team, vecs)
+    x_plain = cr_kernel.solve_tridiag_reference(L, C, U, b)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    assert bool(torch.isfinite(x).all())
+    assert float((x - x_plain).abs().max() / x_plain.abs().max()) < tol
 
 
 @pytest.mark.parametrize("rows,K,team", [(11, 38, 5), (11, 38, 1),

@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA cyclic-reduction
-kernel against its plain PyTorch version, and the cheetah slice on the card
-against the JAX package's golden solve.  Without a card they skip.
+kernel against its plain PyTorch version (one and many right-hand sides, the
+hybrid's tail), and the cheetah slice, the constrained hopper solve and the
+cheetah replan chain on the card against the JAX package's golden solves.
+Without a card they skip.
 
 This file imports neither JAX nor ``idto_tpu``, so it also runs where JAX is
 not installed:
@@ -169,3 +171,117 @@ def test_mini_cheetah_on_card_matches_golden(cuda):
     assert np.abs(stats.rho.cpu().numpy() - ref["rho"]).max() < 1e-8
     np.testing.assert_array_equal(stats.solver_flag.cpu().numpy(),
                                   ref["solver_flag"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 5e-4)])
+@pytest.mark.parametrize("n,k,R,B", [
+    (41, 5, 121, 3),    # hopper: K = 10 (run-time-K engine), R = n_h + 1
+    (41, 5, 121, 300),  # a batch past the card's SM count: smaller teams
+    (41, 3, 41, 3),     # spinner: K = 6 (register tiles)
+    (41, 6, 121, 3),    # airhockey: K = 12
+    (21, 19, 7, 3),     # register tiles of 38 with several right-hand sides
+])
+def test_cr_kernel_many_right_hand_sides_on_card(cuda, n, k, R, B, dtype, tol):
+    """The equality-constraint Schur solve's launch: R = n_h + 1 right-hand
+    sides in one call, against the plain version and a dense solve."""
+    rng = np.random.default_rng(13)
+    bands, dense = _random_spd_penta(min(B, 3), n, k, rng)
+    reps = -(-B // 3)
+    H = penta.PentaBands(**{
+        f: torch.as_tensor(np.tile(X, (reps, 1, 1, 1))[:B], dtype=dtype,
+                           device=cuda) for f, X in bands.items()})
+    b = rng.standard_normal((B, R, n, k))
+    rhs = torch.as_tensor(b, dtype=dtype, device=cuda)
+    before = cr_kernel.launches
+    x = cr_kernel.solve_many(H, rhs)
+    torch.cuda.synchronize()
+    assert cr_kernel.launches == before + 1
+    assert _rel(x.cpu(), cr_kernel.solve_many_reference(H, rhs).cpu()) < tol
+    for s in (0, B - 1):
+        x_dense = np.linalg.solve(dense[s % 3], b[s].reshape(R, -1).T).T
+        assert _rel(x[s].cpu().reshape(R, -1), x_dense) < tol
+
+
+@pytest.mark.cuda
+def test_hybrid_tail_runs_the_kernel_on_card(cuda):
+    """factorize(tail_rows=64) + solve_factorized on T = 640 (321
+    super-rows): level-wise down to 40 rows, one kernel launch for the
+    tail, against the fused kernel and the level-wise solve."""
+    from idto_tpu_torch.ops import cyclic_reduction
+
+    rng = np.random.default_rng(17)
+    B, R, n, k = 2, 2, 641, 4
+    bands, _ = _random_spd_penta(B, n, k, rng)
+    H = penta.PentaBands(**{f: torch.as_tensor(X, device=cuda)
+                            for f, X in bands.items()})
+    rhs = torch.as_tensor(rng.standard_normal((B, R, n, k)), device=cuda)
+    F = cyclic_reduction.factorize(H, tail_rows=64)
+    assert F.tail_LCU[1].shape[1] == 40
+    before = cr_kernel.launches
+    x = cyclic_reduction.solve_factorized(F, rhs)
+    torch.cuda.synchronize()
+    assert cr_kernel.launches == before + 1
+    x_fused = cr_kernel.solve_many(H, rhs)
+    x_levels = cyclic_reduction.solve(H, rhs)
+    assert cr_kernel.launches == before + 2  # level-wise launches nothing
+    assert _rel(x.cpu(), x_fused.cpu()) < 1e-9
+    assert _rel(x.cpu(), x_levels.cpu()) < 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr_use_pallas,per_iteration", [(None, 2), (False, 0)])
+def test_constrained_hopper_on_card_matches_golden(cuda, cr_use_pallas,
+                                                   per_iteration):
+    """The hopper at its YAML settings through cyclic reduction: two kernel
+    launches an iteration on the fused route (the R = 121 Schur solve and
+    the Newton step), none on the level-wise route; tolerances of
+    tests/test_torch_constraints.py."""
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               "torch_constraints_hopper.npz"))
+    iters = int(ref["max_iterations"])
+    model, _, prob, params, _ = load_example("hopper", device=cuda)
+    params = params.replace(
+        max_iterations=iters, cr_use_pallas=cr_use_pallas,
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+    q_guess = torch.as_tensor(ref["q_guess"], device=cuda)
+    before = cr_kernel.launches
+    sol, stats, _ = solve_batch(model, broadcast_problem(prob, q_guess.shape[0]),
+                                params, q_guess)
+    torch.cuda.synchronize()
+    assert cr_kernel.launches == before + per_iteration * iters
+    np.testing.assert_allclose(sol.q.cpu().numpy(), ref["q"], rtol=1e-7,
+                               atol=1e-9)
+    for key in ("cost", "h_norm", "merit"):
+        np.testing.assert_allclose(getattr(stats, key).cpu().numpy(),
+                                   ref[key], rtol=1e-6, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_cheetah_replan_on_card_matches_golden(cuda):
+    """mpc_initialize and two replans through the kernel (one launch each)
+    against the JAX package's golden chain, which went through Thomas: two
+    float64 solvers differ by ~4e-7 on these replans' q (measured on the CPU
+    between the kernel's plain version and Thomas), so 5e-6."""
+    from idto_tpu_torch.mpc import controller as mpc
+
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               "torch_mpc_cheetah.npz"))
+    model, cfg, prob, params, q_guess = load_example("mini_cheetah",
+                                                     device=cuda)
+    params = params.replace(max_iterations=1, check_convergence=False,
+                            linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+    mpc_params = mpc.make_mpc_params(params, 1)
+    rel = np.asarray(cfg.q_nom_relative_to_q_init)
+    probs = broadcast_problem(prob, 1)
+    carry, _ = mpc.mpc_initialize(model, probs, params, q_guess[None])
+    x0 = torch.as_tensor(ref["x0"], device=cuda)[None]
+    for i, t in enumerate(ref["times"]):
+        before = cr_kernel.launches
+        carry, sol = mpc.mpc_step(model, probs, mpc_params, rel, carry, x0,
+                                  float(t))
+        torch.cuda.synchronize()
+        assert cr_kernel.launches == before + 1
+        assert _rel(sol.q[0].cpu(), ref[f"q_{i}"]) < 5e-6
+        assert _rel(carry.Delta[0].cpu(), ref[f"Delta_{i}"]) < 1e-12

@@ -36,7 +36,8 @@ def _assert_same(a, b, where):
         assert a == b, where
 
 
-@pytest.mark.parametrize("name", ["pendulum", "spinner", "mini_cheetah"])
+@pytest.mark.parametrize("name", ["pendulum", "acrobot", "spinner", "hopper",
+                                  "airhockey", "mini_cheetah"])
 def test_load_example_matches_converted_jax(name):
     jm, _, jprob, jparams, jqg = jax_load_example(name)
     model, cfg, prob, params, q_guess = load_example(name, device="cpu")
@@ -47,7 +48,8 @@ def test_load_example_matches_converted_jax(name):
 
 
 def test_registry_and_model_helpers():
-    assert example_names() == ["mini_cheetah", "pendulum", "spinner"]
+    assert example_names() == ["acrobot", "airhockey", "hopper",
+                               "mini_cheetah", "pendulum", "spinner"]
     model, _, prob, _, _ = load_example("mini_cheetah", device="cpu")
     assert isinstance(model, Model)
     assert (model.nq, model.nv, model.nu) == (19, 18, 12)
@@ -76,6 +78,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import idto_tpu_torch.optimizer.solver\n"
         "import idto_tpu_torch.ops.cr_kernel\n"
         "import idto_tpu_torch.soa.partials\n"
+        "import idto_tpu_torch.ops.cyclic_reduction\n"
+        "import idto_tpu_torch.mpc.controller\n"
+        "import idto_tpu_torch.mpc.trajectory_store\n"
         "from idto_tpu_torch.examples.registry import load_example\n"
         "load_example('mini_cheetah', device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("

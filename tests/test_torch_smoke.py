@@ -70,3 +70,38 @@ def test_entry_points_take_the_cpu_when_asked():
     leaves = [v for v in vars(model).values() if isinstance(v, torch.Tensor)]
     assert leaves and all(v.device.type == "cpu" for v in leaves)
     assert convert.tensor([1.0, 2.0], device="cpu").device.type == "cpu"
+
+
+def test_cr_work_counts_every_right_hand_side_of_the_schur_solve():
+    """The hopper's equality-constraint solve: rows = 21 super-rows of
+    K = 10, R = 121 right-hand sides, float64."""
+    K, rows, R = 10, 21, 121
+    n_bytes, flops = chip_smoke.cr_work(1, rows, K, R, 8)
+    # 21 C, 20 L and 20 U blocks; b read and x written once for each of the
+    # 121 right-hand sides: 49 KB of bands, 407 KB of vectors.
+    assert n_bytes == (61 * 100 + 2 * R * rows * K) * 8 == 455_360
+    # Levels of 21, 10, 5, 2, 1 rows.  Reduced rows with a row below: 10,
+    # 4, 2, 0; without: 0, 1, 0, 1.  Products 6 and 4 each, less an L' a
+    # level and a U' where the last reduced row has a row below (levels 0
+    # and 2).  Matrix-vector products: 2 or 1 a reduced row on the way
+    # down, n_ev + (n_ev - 1) + n_od a level on the way up.
+    products = 6 * 16 + 4 * 2 - 4 - 2
+    matvecs = (2 * 16 + 2) + (31 + 14 + 7 + 2 + 1)
+    assert flops == 2 * K**3 * (21 + products) + 2 * K * K * R * matvecs
+    # The right-hand sides are nine tenths of the work and of the bytes.
+    assert 2 * K * K * R * matvecs > 0.9 * flops
+    bound, by = chip_smoke.cr_bound_ms(256, rows, K, R, 8)
+    assert by == "bytes"
+    assert bound == pytest.approx(256 * 455_360 / 3.35e12 * 1e3, rel=1e-12)
+
+
+def test_smoke_shapes_are_the_examples_own():
+    """The Schur shapes chip_smoke.py times are (T + 1, nq, T n_un + 1) of
+    the registered examples."""
+    shapes = []
+    for name in ("hopper", "spinner", "airhockey"):
+        model, _, prob, params, _ = load_example(name, device="cpu")
+        assert params.equality_constraints
+        shapes.append((prob.num_steps + 1, model.nq,
+                       prob.num_steps * len(model.unactuated_vdofs) + 1))
+    assert tuple(shapes) == chip_smoke.SCHUR_SHAPES
