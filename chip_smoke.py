@@ -22,7 +22,15 @@ exits non-zero without the final result line:
                  launch) in both types at B=1 and B=256, timed beside
                  their bound; and the hybrid solve (level-wise cyclic
                  reduction down to 64 super-rows, the kernel on the tail)
-                 at T=640 against the fused kernel and the dense solve.
+                 at T=640 against the fused kernel and the dense solve;
+                 and the Schur solves of the manipulation examples (kuka,
+                 jaco and jaco_ball K=28, dual_jaco and punyo K=42,
+                 allegro_hand K=46; R = 241, or 61 at T=10) in both types
+                 at B=1 and at the fleet path's batch, timed beside bound,
+                 plain version and a dense library solve; the Newton-step
+                 launches (R = 1) of the same examples, dual_jaco's only
+                 launch among them, and the closed loops' two launches at
+                 B=1, likewise.
   4. slice    -- the batched mini-cheetah Gauss-Newton trust-region solve
                  (cyclic reduction, float64, 3 iterations) through
                  ``solve_batch`` on the card; the kernel's launch count
@@ -38,7 +46,26 @@ exits non-zero without the final result line:
                  iteration, one warm replan, ten chained replans 0.016 s
                  apart): one launch a replan, the first replans against
                  the port's CPU run, the median replan time.
-  7. times    -- one solve iteration at several batch sizes; the kernel,
+  7. fleet    -- kuka, jaco, jaco_ball, dual_jaco, allegro_hand and punyo,
+                 each at its YAML settings and full size but for cyclic
+                 reduction (float64, a small batch, two iterations) through
+                 ``solve_batch``: two launches an iteration under equality
+                 constraints (one for dual_jaco, which has none), the cost
+                 not above the initial cost, against the port's CPU run.
+  8. closed_loop -- ``run_mpc`` on the hopper (equality constraints,
+                 ground contact, PD gains and feed-forward) at its YAML
+                 horizon, rates and step, the initial solve cut to two
+                 iterations and ``sim_time`` to ten replans: two launches a
+                 replan, finite logs, the loop against the port's CPU run;
+                 the mean replan and the mean simulated period.  Then
+                 ``run_mpc`` on jaco with the stiffer simulation contact of
+                 ``load_sim_plant`` for two replans: its YAML gains are
+                 unstable under the explicit simulator (in the JAX package
+                 too), so the first six substeps are held against the CPU
+                 run one by one, the first replan period must stay finite,
+                 and the loop must turn non-finite at the substep where the
+                 CPU run does.
+  9. times    -- one solve iteration at several batch sizes; the kernel,
                  the whole ``solve_many`` call, the plain version and a
                  dense library solve at the cheetah shape, with CUDA
                  events, beside the least time the card could take; the
@@ -101,6 +128,50 @@ QUAT_TOL = 5e-2
 MPC_RTOL = 1e-5
 MPC_REPLANS = 10
 MPC_DT = 0.016
+# The manipulation examples.  Their Schur solves launch the kernel at
+# (n, k, R) = (T + 1, nq, 6 T + 1): six unactuated dofs of the free body.
+FLEET = ("kuka", "jaco", "jaco_ball", "dual_jaco", "allegro_hand", "punyo")
+FLEET_SCHUR_SHAPES = ((41, 14, 241), (41, 21, 241), (41, 23, 241),
+                      (11, 14, 61))
+# Their Newton-step launches, (T + 1, nq, 1); the last is dual_jaco's only
+# launch (T = 20, no equality constraints).
+FLEET_STEP_SHAPES = ((41, 14, 1), (41, 21, 1), (41, 23, 1), (11, 14, 1),
+                     (21, 21, 1))
+FLEET_BATCH = 8
+FLEET_ITERS = 2
+# The fleet on the card against the port's CPU run: two iterations of the
+# same float64 algorithm, the kernel against its plain version.  The scaled
+# Hessians reach condition ~1e10 and cyclic reduction does not pivot, so
+# summation order shows more than on the cheetah: 2e-17 (dual_jaco) to 4e-10
+# (allegro_hand) on q on an NVIDIA H100 80GB HBM3.
+FLEET_RTOL = 1e-7
+# The closed loop: the hopper, replans after a short initial solve.
+CLOSED_LOOP_EXAMPLE = "hopper"
+CLOSED_LOOP_REPLANS = 10
+CLOSED_LOOP_INIT_ITERS = 2
+CLOSED_LOOP_REF_REPLANS = 3
+# The loop on the card against the CPU run, plans and simulated states: each
+# replan starts from the last one's carry and the simulated state.  The
+# hopper's three chained replans differ by 1e-12 on an NVIDIA H100 80GB HBM3
+# (the cheetah's, whose Hessian is worse, by 3e-7: MPC_RTOL).
+CLOSED_LOOP_RTOL = 1e-8
+# The hopper loop's two launches a replan, (n, k, R), at B=1.  (Jaco's, (41,
+# 14, 241) and (41, 14, 1), are among the fleet's at B=1.)
+CLOSED_LOOP_SHAPES = ((41, 5, 121), (41, 5, 1))
+# Jaco's loop: unstable (h Kd / M = 250 on the wrist), so the state grows
+# 250-fold a substep, then squares, and overflows in the second replan
+# period.  Two replans of ten substeps; the first period is held.
+UNSTABLE_LOOP_EXAMPLE = "jaco"
+UNSTABLE_LOOP_REPLANS = 2
+# The first substeps of that period against the CPU run, each relative to
+# its own largest entry (both runs amplify the same rounding differences
+# 250-fold a substep along with the state itself: a change of 1e-16 in
+# v_init shows as 4e-11 at the sixth substep).  From the seventh on the joint
+# angles pass 1e13 rad, where float64 is spaced 2e-3 rad apart and sin and
+# cos keep no digit: two runs then differ by factors, and only the substep
+# of the overflow is held.
+UNSTABLE_LOOP_HELD = 6
+UNSTABLE_LOOP_RTOL = 1e-8
 # Peak rates of one H100 SXM (NVIDIA H100 data sheet): HBM3 bandwidth;
 # float64 on the tensor cores and on the FMA pipes; float32 on the FMA
 # pipes (the kernel uses no TF32).
@@ -126,6 +197,12 @@ def log(phase, msg):
 
 def rel_err(x, ref):
     return float((x - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+def rel_err_np(x, ref):
+    import numpy as np
+
+    return float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-300))
 
 
 def cuda_time_ms(fn, reps):
@@ -307,9 +384,12 @@ def check_kernel(gen, n, k, B, R, dtype, n_dense=None, timed=False,
         dense_all, b_all = dense_solve_inputs(H, rhs)
         lib_ms = cuda_time_ms(lambda: torch.linalg.solve(dense_all, b_all),
                               REPS)
-        msg += f", plain {p_ms:.3f} ms, library dense solve {lib_ms:.3f} ms"
-        out = {"max_abs_err": out, "ms": ms, "plain_ms": p_ms,
-               "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        path_ms = cuda_time_ms(lambda: cr_kernel.solve_many(H, rhs), REPS)
+        msg += (f", path (solve_many) {path_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                f"library dense solve {lib_ms:.3f} ms")
+        out = {"max_abs_err": out, "ms": ms, "path_ms": path_ms,
+               "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+               "library_ms": lib_ms}
     log("kernel", msg)
     if not (e_plain <= tol and e_dense <= tol):
         raise AssertionError(f"kernel disagrees ({name}, n={n}, k={k}, R={R})")
@@ -360,9 +440,10 @@ def check_hybrid(gen):
 
 def phase_kernel(gen):
     """Kernel against plain and dense at every shape; returns the largest
-    float64 abs difference from the plain version at the cheetah shape and
-    the numbers of the hopper's Schur solve (float64, the constraints
-    path's batch)."""
+    float64 abs difference from the plain version at the cheetah shape, the
+    numbers of the hopper's Schur solve (float64, the constraints path's
+    batch), those of the manipulation examples' launches (float64, B=1 and
+    the fleet path's batch) and those of the hopper loop's (float64, B=1)."""
     import torch
 
     worst = 0.0
@@ -392,7 +473,26 @@ def phase_kernel(gen):
         torch.cuda.empty_cache()
     check_hybrid(gen)
     torch.cuda.empty_cache()
-    return worst, schur
+
+    def held(shapes, batches):
+        """Both types at each shape and batch; the float64 numbers by
+        rows, K, R and batch."""
+        numbers = {}
+        for n, k, R in shapes:
+            for dtype in (torch.float64, torch.float32):
+                for B in batches:
+                    f64 = dtype == torch.float64
+                    out = check_kernel(gen, n, k, B, R, dtype,
+                                       n_dense=DENSE_SYSTEMS, timed=True,
+                                       yardsticks=f64)
+                    if f64:
+                        numbers[f"rows{(n + 1) // 2}_K{2 * k}_R{R}_B{B}"] = out
+            torch.cuda.empty_cache()
+        return numbers
+
+    fleet = held(FLEET_SCHUR_SHAPES + FLEET_STEP_SHAPES, (1, FLEET_BATCH))
+    loop = held(CLOSED_LOOP_SHAPES, (1,))
+    return worst, schur, fleet, loop
 
 
 def cheetah_inputs(batch, seed, device):
@@ -681,6 +781,299 @@ def phase_mpc():
     return total, replan_ms
 
 
+def fleet_inputs(name, batch, seed, device, iters=FLEET_ITERS):
+    """A manipulation example at its YAML settings but for cyclic reduction
+    and ``iters`` iterations, float64, and ``batch`` q guesses: the
+    example's guess plus 0.01 N(0, 1) noise from ``seed``, q_0 pinned to
+    q_init."""
+    import numpy as np
+    import torch
+
+    from idto_tpu_torch.examples.registry import load_example
+    from idto_tpu_torch.optimizer.problem import LinearSolverType
+
+    model, _, prob, params, q_guess = load_example(
+        name, dtype=torch.float64, device=device)
+    params = params.replace(
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION, max_iterations=iters)
+    rng = np.random.default_rng(seed)
+    qg = q_guess.cpu().numpy()[None] + 0.01 * rng.standard_normal(
+        (batch,) + tuple(q_guess.shape))
+    qg[:, 0] = prob.q_init.cpu().numpy()
+    return model, prob, params, torch.as_tensor(qg, device=device)
+
+
+def phase_fleet(seed):
+    """The six manipulation examples on the card; returns (launches, ms of
+    one iteration by example)."""
+    import torch
+
+    from idto_tpu_torch.ops import cr_kernel
+    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+
+    total_mem = torch.cuda.mem_get_info()[1]
+    total, iter_ms = 0, {}
+    nref = 2
+    for name in FLEET:
+        model, prob, params, qg = fleet_inputs(name, FLEET_BATCH, seed, "cuda")
+        constrained = bool(params.equality_constraints
+                           and model.unactuated_vdofs)
+        n_h = prob.num_steps * len(model.unactuated_vdofs) if constrained \
+            else 0
+        # The batch is sized from the peak of one scenario's iteration.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        solve_batch(model, broadcast_problem(prob, 1),
+                    params.replace(max_iterations=1), qg[:1])
+        torch.cuda.synchronize()
+        peak1 = torch.cuda.max_memory_allocated() - base
+        if FLEET_BATCH * peak1 > MEMORY_BUDGET * total_mem:
+            raise AssertionError(
+                f"fleet: {name} at B={FLEET_BATCH} would need "
+                f"{FLEET_BATCH * peak1 / 2**30:.1f} GiB")
+        probs = broadcast_problem(prob, FLEET_BATCH)
+        torch.cuda.reset_peak_memory_stats()
+        cr_kernel.launches = 0
+        t0 = time.perf_counter()
+        sol, stats, _ = solve_batch(model, probs, params, qg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = cr_kernel.launches
+        total += launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expected = (2 if constrained else 1) * FLEET_ITERS
+        if launches != expected:
+            raise AssertionError(f"fleet: {name} launched the kernel "
+                                 f"{launches} times, expected {expected}")
+        failed = check_solution(sol, stats, f"fleet {name}", monotone=False)
+        if failed:
+            raise AssertionError(f"fleet: {name}: {failed} scenarios failed")
+        cost = stats.cost
+        if not bool((cost[:, -1] <= cost[:, 0]).all()):
+            raise AssertionError(f"fleet: {name}: cost above the initial cost")
+        iter_ms[name] = 1e3 * seconds / FLEET_ITERS
+        log("fleet", f"{name} nq={model.nq} T={prob.num_steps} pairs="
+                     f"{len(model.geoms.pairs)} R={n_h + 1} B={FLEET_BATCH} "
+                     f"float64 CR, {FLEET_ITERS} iterations: {seconds:.2f} s "
+                     f"({iter_ms[name]:.0f} ms an iteration, host clock), "
+                     f"peak {peak:.3f} GiB (one scenario "
+                     f"{peak1 / 2**30:.3f}), kernel launches {launches}, mean "
+                     f"cost {cost[:, 0].mean().item():.6e} -> "
+                     f"{cost[:, -1].mean().item():.6e}, mean h_norm "
+                     f"{stats.h_norm[:, 0].mean().item():.4e} -> "
+                     f"{stats.h_norm[:, -1].mean().item():.4e}")
+
+        model_c, prob_c, params_c, qg_c = fleet_inputs(
+            name, FLEET_BATCH, seed, "cpu")
+        t0 = time.perf_counter()
+        sol_c, stats_c, _ = solve_batch(
+            model_c, broadcast_problem(prob_c, nref), params_c, qg_c[:nref])
+        cpu_s = time.perf_counter() - t0
+        errs = {
+            "q": rel_err(sol.q[:nref].cpu(), sol_c.q),
+            "cost": rel_err(stats.cost[:nref].cpu(), stats_c.cost),
+            "h_norm": rel_err(stats.h_norm[:nref].cpu(), stats_c.h_norm)
+            if constrained else 0.0,
+        }
+        log("fleet", f"  card vs CPU ({cpu_s:.1f} s), first {nref} scenarios: "
+                     + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                     + f" (tol {FLEET_RTOL:g})")
+        if not all(v <= FLEET_RTOL for v in errs.values()):
+            raise AssertionError(f"fleet: {name} on the card disagrees with "
+                                 f"the CPU run")
+        del model, prob, params, qg, probs, sol, stats
+        torch.cuda.empty_cache()
+    return total, iter_ms
+
+
+def closed_loop_run(device, replans, example=CLOSED_LOOP_EXAMPLE):
+    """``run_mpc`` on ``example`` on ``device``: cyclic reduction, the
+    initial solve cut to CLOSED_LOOP_INIT_ITERS iterations, ``sim_time`` to
+    ``replans`` replans, the simulation plant of ``load_sim_plant``.
+    Returns (result, plans, the kernel's launch count read at each replan,
+    (model, config))."""
+    import dataclasses
+
+    import torch
+
+    from idto_tpu_torch.examples.registry import load_example, load_sim_plant
+    from idto_tpu_torch.mpc.runner import run_mpc
+    from idto_tpu_torch.ops import cr_kernel
+    from idto_tpu_torch.optimizer.problem import LinearSolverType
+
+    model, cfg, prob, params, q_guess = load_example(
+        example, dtype=torch.float64, device=device)
+    params = params.replace(
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION,
+        max_iterations=CLOSED_LOOP_INIT_ITERS)
+    cfg = dataclasses.replace(
+        cfg, sim_time=(replans + 0.5) / cfg.controller_frequency)
+    sim_model, sim_contact = load_sim_plant(example, params, device=device)
+    plans, counts = [], []
+
+    def on_replan(t_now, q_plan):
+        plans.append(q_plan)
+        counts.append(cr_kernel.launches)
+
+    res = run_mpc(model, cfg, prob, params, q_guess, sim_model=sim_model,
+                  sim_contact=sim_contact, on_replan=on_replan)
+    return res, plans, counts, (model, cfg)
+
+
+def first_nonfinite(res):
+    """Index of the first substep whose logged q or v is not finite, or
+    -1."""
+    import numpy as np
+
+    finite = np.isfinite(res.q_log).all(axis=1) & np.isfinite(
+        res.v_log).all(axis=1)
+    return -1 if finite.all() else int(np.argmin(finite))
+
+
+def substep_errs(res, ref, substeps):
+    """Largest difference of the first ``substeps`` logged q, v and u from
+    ``ref``'s, each substep relative to its own largest entry."""
+    import numpy as np
+
+    errs = {}
+    for key in ("q_log", "v_log", "u_log"):
+        x, y = getattr(res, key)[:substeps], getattr(ref, key)[:substeps]
+        errs[key] = float((np.abs(x - y).max(axis=1)
+                           / np.abs(y).max(axis=1).clip(1e-300)).max())
+    return errs
+
+
+def unstable_loop_on_card():
+    """Jaco's loop on the card, launches counted by the caller: returns what
+    ``check_unstable_loop`` holds."""
+    from idto_tpu_torch.examples.registry import load_example, load_sim_plant
+    from idto_tpu_torch.ops import cr_kernel
+
+    before = cr_kernel.launches
+    res, plans, counts, (_, cfg) = closed_loop_run(
+        "cuda", UNSTABLE_LOOP_REPLANS, UNSTABLE_LOOP_EXAMPLE)
+    counts = [n - before for n in counts]
+    params = load_example(UNSTABLE_LOOP_EXAMPLE, device="cpu")[3]
+    _, sim_contact = load_sim_plant(UNSTABLE_LOOP_EXAMPLE, params,
+                                    device="cpu")
+    if sim_contact is None or sim_contact == params.contact:
+        raise AssertionError("closed_loop: the simulation contact is the "
+                             "optimizer's")
+    return res, plans, counts, cfg, sim_contact
+
+
+def check_unstable_loop(res, plans, counts, cfg, sim_contact):
+    """Jaco's loop on the card against the CPU run: launches, the first
+    substeps one by one, and where it turns non-finite."""
+    import numpy as np
+
+    first = 2 * CLOSED_LOOP_INIT_ITERS + 2 * cfg.mpc_iters
+    expected = [first + 2 * cfg.mpc_iters * i
+                for i in range(UNSTABLE_LOOP_REPLANS)]
+    if counts != expected:
+        raise AssertionError(f"closed_loop: {UNSTABLE_LOOP_EXAMPLE} launches "
+                             f"at each replan {counts}, expected {expected}")
+    substeps = max(1, round(1.0 / (cfg.controller_frequency
+                                   * cfg.sim_time_step)))
+    n_bad = first_nonfinite(res)
+    if not (n_bad < 0 or n_bad >= substeps):
+        raise AssertionError(f"closed_loop: {UNSTABLE_LOOP_EXAMPLE}'s first "
+                             f"replan period is not finite (substep {n_bad})")
+    res_c, plans_c, _, _ = closed_loop_run(
+        "cpu", UNSTABLE_LOOP_REPLANS, UNSTABLE_LOOP_EXAMPLE)
+    n_bad_c = first_nonfinite(res_c)
+    errs = substep_errs(res, res_c, UNSTABLE_LOOP_HELD)
+    errs["plan"] = rel_err_np(plans[0], plans_c[0])
+    log("closed_loop", f"{UNSTABLE_LOOP_EXAMPLE} B=1 float64 CR, sim contact "
+                       f"stiffness {sim_contact.stiffness:g} and smoothing "
+                       f"{sim_contact.smoothing_factor:g}, "
+                       f"{UNSTABLE_LOOP_REPLANS} replans of {substeps} "
+                       f"substeps of {cfg.sim_time_step:g} s: launches at "
+                       f"each replan {counts}; max |v| by substep "
+                       + " ".join(f"{x:.1e}" for x in
+                                  np.abs(res.v_log[:substeps]).max(axis=1))
+                       + f"; non-finite from substep {n_bad} (CPU run: "
+                       f"{n_bad_c}); first {UNSTABLE_LOOP_HELD} substeps, card "
+                       f"vs CPU, each relative to its own size: "
+                       + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                       + f" (tol {UNSTABLE_LOOP_RTOL:g}); mean_solve_time "
+                       f"{1e3 * res.mean_solve_time:.1f} ms, one simulated "
+                       f"period {1e3 * res.mean_sim_time:.1f} ms")
+    if n_bad != n_bad_c:
+        raise AssertionError("closed_loop: the card's loop turns non-finite "
+                             "at another substep than the CPU run's")
+    if not all(e <= UNSTABLE_LOOP_RTOL for e in errs.values()):
+        raise AssertionError(f"closed_loop: {UNSTABLE_LOOP_EXAMPLE}'s first "
+                             f"substeps on the card disagree with the CPU "
+                             f"run")
+
+
+def phase_closed_loop():
+    """The closed loops on the card; returns (launches, ms of a replan, ms
+    of a simulated replan period of the hopper)."""
+    import numpy as np
+
+    from idto_tpu_torch.ops import cr_kernel
+
+    cr_kernel.launches = 0
+    t0 = time.perf_counter()
+    res, plans, counts, (model, cfg) = closed_loop_run(
+        "cuda", CLOSED_LOOP_REPLANS)
+    seconds = time.perf_counter() - t0
+    hopper_total = cr_kernel.launches
+    unstable = unstable_loop_on_card()
+    total = cr_kernel.launches
+    # Two launches an iteration (the Schur solve and the Newton step): the
+    # initial solve's, then mpc_iters a replan.
+    first = 2 * CLOSED_LOOP_INIT_ITERS + 2 * cfg.mpc_iters
+    expected = [first + 2 * cfg.mpc_iters * i
+                for i in range(CLOSED_LOOP_REPLANS)]
+    if counts != expected or hopper_total != expected[-1]:
+        raise AssertionError(f"closed_loop: launches at each replan {counts} "
+                             f"(total {hopper_total}), expected {expected}")
+    substeps = max(1, round(1.0 / (cfg.controller_frequency
+                                   * cfg.sim_time_step)))
+    steps = CLOSED_LOOP_REPLANS * substeps
+    for key, width in (("q_log", model.nq), ("v_log", model.nv),
+                       ("u_log", model.nu)):
+        x = getattr(res, key)
+        if x.shape != (steps, width) or not np.isfinite(x).all():
+            raise AssertionError(f"closed_loop: bad {key} {x.shape}")
+    if res.times.shape != (steps,) or res.num_solves != CLOSED_LOOP_REPLANS:
+        raise AssertionError("closed_loop: wrong number of steps")
+    replan_ms = 1e3 * res.mean_solve_time
+    period_ms = 1e3 * res.mean_sim_time
+    log("closed_loop", f"{CLOSED_LOOP_EXAMPLE} B=1 float64 CR, initial solve "
+                       f"of {CLOSED_LOOP_INIT_ITERS} iterations, "
+                       f"{CLOSED_LOOP_REPLANS} replans at "
+                       f"{cfg.controller_frequency:g} Hz, {substeps} substeps "
+                       f"of {cfg.sim_time_step:g} s each: {seconds:.1f} s, "
+                       f"{hopper_total} kernel launches (2 a replan), q from "
+                       f"{res.q_log[0].round(4).tolist()} to "
+                       f"{res.q_log[-1].round(4).tolist()}, max |u| "
+                       f"{np.abs(res.u_log).max():.3g}; mean_solve_time "
+                       f"{replan_ms:.1f} ms, "
+                       f"one simulated period {period_ms:.1f} ms "
+                       f"({period_ms / substeps:.1f} ms a substep)")
+    res_c, plans_c, _, _ = closed_loop_run("cpu", CLOSED_LOOP_REF_REPLANS)
+    e_plan = [rel_err_np(a, b) for a, b in zip(plans, plans_c)]
+    n = res_c.q_log.shape[0]
+    e_log = {k: rel_err_np(getattr(res, k)[:n], getattr(res_c, k))
+             for k in ("q_log", "v_log", "u_log")}
+    log("closed_loop", f"card vs CPU, first {CLOSED_LOOP_REF_REPLANS} "
+                       f"replans: plans "
+                       + ", ".join(f"{e:.3e}" for e in e_plan)
+                       + f"; simulated over {n} substeps "
+                       + ", ".join(f"{k} {e:.3e}" for k, e in e_log.items())
+                       + f" (tol {CLOSED_LOOP_RTOL:g})")
+    if not all(e <= CLOSED_LOOP_RTOL for e in e_plan + list(e_log.values())):
+        raise AssertionError("closed_loop: the loop on the card disagrees "
+                             "with the CPU run")
+    check_unstable_loop(*unstable)
+    return total, replan_ms, period_ms
+
+
 def phase_times(seed, reps):
     """Solve-iteration and kernel times; returns the kernel's numbers at
     the main path's batch for the result line."""
@@ -786,10 +1179,13 @@ def main(argv=None):
 
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    max_abs, schur = phase_kernel(gen)
+    max_abs, schur, fleet_shapes, loop_shapes = phase_kernel(gen)
     by_path = {"cheetah_slice": phase_slice(SLICE_BATCH, args.seed)}
     by_path["hopper_constraints"] = phase_constraints(SLICE_BATCH, args.seed)
     by_path["mpc_replan"], replan_ms = phase_mpc()
+    by_path["fleet"], fleet_ms = phase_fleet(args.seed)
+    by_path["closed_loop"], loop_replan_ms, loop_period_ms = \
+        phase_closed_loop()
     times = phase_times(args.seed, REPS)
 
     print(smi, flush=True)
@@ -805,6 +1201,14 @@ def main(argv=None):
         # The hopper's Schur solve (rows=21, K=10, R=121, float64, B=256).
         "schur_r121": schur,
         "mpc_replan_ms": replan_ms,
+        # The manipulation examples' Schur and Newton-step launches
+        # (float64): rows, K, R and batch in the key.
+        "fleet_shapes": fleet_shapes,
+        "fleet_iteration_ms": fleet_ms,
+        # The hopper loop's two launches a replan (float64, B=1).
+        "closed_loop_shapes": loop_shapes,
+        "closed_loop_replan_ms": loop_replan_ms,
+        "closed_loop_sim_period_ms": loop_period_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

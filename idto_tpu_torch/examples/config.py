@@ -114,6 +114,15 @@ class ExampleConfig:
             kwargs[k] = v
         return cls(**kwargs)
 
+    def apply_test_mode(self) -> "ExampleConfig":
+        """The ``--test`` smoke-mode overrides: ten iterations, no MPC, no
+        files written, nothing played back."""
+        return dataclasses.replace(
+            self, max_iters=10, mpc=False, save_solver_stats_csv=False,
+            play_optimal_trajectory=False, play_initial_guess=False,
+            play_target_trajectory=False, num_threads=1,
+        )
+
 
 def build_problem(
     cfg: ExampleConfig, model: Model, dtype=torch.float64, device="cuda"

@@ -210,6 +210,14 @@ class ModelBuilder:
         self._grav_on.append(bool(gravity_enabled))
         return idx
 
+    def set_gravity(self, gravity) -> None:
+        """Replace the gravity vector (allegro_hand's upside-down variant)."""
+        self._gravity = np.asarray(gravity, dtype=np.float64)
+
+    def set_gravity_enabled(self, link_name: str, enabled: bool) -> None:
+        """Switch gravity on one link on or off (``grav_scale`` 1 or 0)."""
+        self._grav_on[self.link_index(link_name)] = bool(enabled)
+
     def add_actuator(self, joint_name: str) -> None:
         self._actuators.append(self._joint_names.index(joint_name))
 

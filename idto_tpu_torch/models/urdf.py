@@ -85,17 +85,32 @@ def parse_urdf_string(
     builder: Optional[ModelBuilder] = None,
     *,
     floating_base: Optional[bool] = None,
+    prefix: str = "",
+    R_base=None,
+    p_base=None,
     gravity_enabled: bool = True,
 ) -> ModelBuilder:
-    """Parse URDF text into a ModelBuilder (``.finalize()`` gives the
-    Model).  ``floating_base=None`` gives root links without a joint to the
-    world a floating joint; False welds them."""
+    """Parse URDF text into ``builder`` (a new ModelBuilder if None;
+    ``.finalize()`` gives the Model).
+
+    ``floating_base=None`` gives root links without a joint to the world a
+    floating joint; False welds them.  ``prefix`` goes before every link,
+    joint and geometry name, so one file can be parsed twice into one
+    builder (dual_jaco).  ``R_base``/``p_base`` pose the model's root in the
+    world: they compose into the joints of links whose parent is the world.
+    ``gravity_enabled=False`` switches gravity off on every link this call
+    adds."""
     if "drake:" in text and "xmlns:drake" not in text:
         text = text.replace(
             "<robot", '<robot xmlns:drake="http://drake.mit.edu"', 1
         )
     root = ET.fromstring(text)
     builder = builder or ModelBuilder()
+    R_base = np.eye(3) if R_base is None else np.asarray(R_base, float)
+    p_base = np.zeros(3) if p_base is None else np.asarray(p_base, float)
+
+    def pfx(name: str) -> str:
+        return name if name == "world" else prefix + name
 
     links = {l.get("name"): l for l in root.findall("link")}
     joint_of_child = {
@@ -130,13 +145,16 @@ def parse_urdf_string(
                 else JointType.FIXED
             )
             builder.add_link(
-                name, "world", jt, joint_name=f"{name}_base",
-                mass=mass, com=com, inertia=I,
+                pfx(name), "world", jt, joint_name=pfx(f"{name}_base"),
+                R_pj=R_base, p_pj=p_base, mass=mass, com=com, inertia=I,
                 gravity_enabled=gravity_enabled,
             )
         else:
             jt = _JOINT_TYPES[j.get("type")]
             R_pj, p_pj = _origin(j.find("origin"))
+            if j.find("parent").get("link") == "world":
+                R_pj = R_base @ R_pj
+                p_pj = p_base + R_base @ p_pj
             axis_el = j.find("axis")
             axis = (
                 _floats(axis_el.get("xyz"))
@@ -150,8 +168,8 @@ def parse_urdf_string(
                 R_pj = R_pj @ make_frame_from_z(axis / np.linalg.norm(axis))
                 axis = np.array([0.0, 0.0, 1.0])
             builder.add_link(
-                name, j.find("parent").get("link"), jt,
-                joint_name=j.get("name"), R_pj=R_pj, p_pj=p_pj, axis=axis,
+                pfx(name), pfx(j.find("parent").get("link")), jt,
+                joint_name=pfx(j.get("name")), R_pj=R_pj, p_pj=p_pj, axis=axis,
                 damping=damping, mass=mass, com=com, inertia=I,
                 gravity_enabled=gravity_enabled,
             )
@@ -163,8 +181,8 @@ def parse_urdf_string(
             gtype, params = parsed
             R, p = _origin(col.find("origin"))
             builder.add_geometry(
-                name, gtype, params, R=R, p=p,
-                name=col.get("name", f"{name}_collision_{ci}"),
+                pfx(name), gtype, params, R=R, p=p,
+                name=pfx(col.get("name", f"{name}_collision_{ci}")),
             )
 
     for trans in root.findall("transmission"):
@@ -175,7 +193,7 @@ def parse_urdf_string(
             act = trans.find("actuator")
             jname = act.get("name") if act is not None else None
         if jname is not None:
-            builder.add_actuator(jname)
+            builder.add_actuator(pfx(jname))
 
     # drake:collision_filter_group: exclude every geometry pair between the
     # member links of groups that ignore each other.
@@ -190,7 +208,7 @@ def parse_urdf_string(
                     members.append(m.get("link"))
                 if m.tag.endswith("ignored_collision_filter_group"):
                     ignores.append((gname, m.get("name")))
-            groups[gname] = members
+            groups[gname] = [pfx(m) for m in members]
     for ga, gb in ignores:
         for la in groups.get(ga, []):
             for lb in groups.get(gb, []):

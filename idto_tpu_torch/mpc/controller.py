@@ -13,8 +13,9 @@ One ``mpc_step`` call:
 The port has one solver, the batch-native one, so every tensor here leads
 with a scenario axis B (B robots replanned together; B = 1 for one), and
 ``prob`` is a problem whose tensors lead with B
-(``parallel.batching.broadcast_problem``).  The velocity-command step and
-the closed-loop simulator are not ported yet.
+(``parallel.batching.broadcast_problem``).  ``mpc.runner.run_mpc`` closes
+the loop around it with ``mpc.simulator``; the velocity-command step is not
+ported yet.
 """
 from __future__ import annotations
 

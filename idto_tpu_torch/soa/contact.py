@@ -2,9 +2,12 @@
 instance axis trailing (counterpart of ``idto_tpu/soa/contact.py``).
 
 Pair kernels: sphere vs point-queryable shape (sphere, box, capsule,
-cylinder, halfspace) and box vs box (14 candidate points each way plus
-144 edge pairs).  Capsule-capsule and convex pairs are not ported;
-``supports_soa`` says whether a model's pair set is covered.
+cylinder, halfspace), box vs box (14 candidate points each way plus 144
+edge pairs), capsule vs capsule (closest points of the two axis segments)
+and capsule vs box, cylinder or halfspace (a 48-step ternary search along
+the capsule's axis, then the sphere query at the minimizer).  Convex hulls
+and the generic box/cylinder pairs are not ported; ``supports_soa`` says
+whether a model's pair set is covered.
 
 Clamps are written as ``torch.minimum``/``torch.maximum`` against tensors
 because their derivative splits evenly at ties, as ``jnp.clip`` and
@@ -32,6 +35,9 @@ _POINT_SHAPES = (
     GeomType.SPHERE,
     GeomType.HALFSPACE,
 )
+# Shapes a capsule is held against by the search along its axis.
+_CAPSULE_SEARCH_SHAPES = (GeomType.BOX, GeomType.HALFSPACE, GeomType.CYLINDER)
+_TERNARY_STEPS = 48
 
 
 def supports_soa(model: Model) -> bool:
@@ -46,6 +52,12 @@ def supports_soa(model: Model) -> bool:
         if tb == GeomType.SPHERE and ta in _POINT_SHAPES:
             continue
         if ta == GeomType.BOX and tb == GeomType.BOX:
+            continue
+        if ta == GeomType.CAPSULE and tb == GeomType.CAPSULE:
+            continue
+        if ta == GeomType.CAPSULE and tb in _CAPSULE_SEARCH_SHAPES:
+            continue
+        if tb == GeomType.CAPSULE and ta in _CAPSULE_SEARCH_SHAPES:
             continue
         return False
     return True
@@ -270,6 +282,86 @@ def box_vs_box(params_a, R_a, p_a, params_b, R_b, p_b):
     return _select(cand_e[0] < best[0], cand_e, best)
 
 
+# -- capsule pairs ------------------------------------------------------------
+
+
+def capsule_vs_capsule(params_a, R_a, p_a, params_b, R_b, p_b):
+    """Capsule vs capsule: closest points of the two axis segments (clamped
+    projection with guarded divisions and one re-projection, exact for a
+    pair of segments), then sphere vs sphere between them.  params
+    (3, P, 1) = [radius, half length, -], R (3, 3, P, N), p (3, P, N)."""
+    ra, ha = params_a[0], params_a[1]
+    rb, hb = params_b[0], params_b[1]
+    da = R_a[:, 2] * ha[None]  # half-axis vectors
+    db = R_b[:, 2] * hb[None]
+    r = p_a - p_b
+    A = mat3.dot(da, da)
+    Bq = mat3.dot(da, db)
+    C = mat3.dot(db, db)
+    D = mat3.dot(da, r)
+    E = mat3.dot(db, r)
+    denom = A * C - Bq * Bq
+    one = _c(A, 1.0)
+    # Segment parameters s, t in [-1, 1]: p_a + s da and p_b + t db.
+    s = _clip((Bq * E - C * D) / torch.where(denom < _EPS, one, denom),
+              -one, one)
+    t = _clip((Bq * s + E) / torch.where(C < _EPS, one, C), -one, one)
+    s = _clip((Bq * t - D) / torch.where(A < _EPS, one, A), -one, one)
+    ca = p_a + s[None] * da
+    cb = p_b + t[None] * db
+    d = mat3.norm(ca - cb)
+    n_ab = (cb - ca) / d[None]
+    phi = d - ra - rb
+    return phi, n_ab, ca + n_ab * ra[None], cb - n_ab * rb[None]
+
+
+def _point_shape_phi(shape_type, params, p):
+    """Signed distance alone of shape-frame points p (3, ...) to a shape:
+    the objective of the search along a capsule's axis."""
+    if shape_type == GeomType.BOX:
+        q = torch.abs(p) - params[:3]
+        qmax = torch.maximum(torch.maximum(q[0], q[1]), q[2])
+        dist_out = mat3.norm(torch.maximum(q, _c(q, 0.0)))
+        return torch.where(qmax > 0.0, dist_out,
+                           torch.minimum(qmax, _c(qmax, 0.0)))
+    if shape_type == GeomType.CYLINDER:
+        return _point_cylinder(p, params[0], params[1])[0]
+    if shape_type == GeomType.HALFSPACE:
+        return p[2]
+    raise NotImplementedError(f"shape {shape_type}")
+
+
+def capsule_vs_shape(params_cap, R_c, p_c, shape_type, params_s, R_s, p_s):
+    """Capsule (A) vs a convex shape (B).  The signed distance to a convex
+    body is convex along the capsule's axis segment a + t (b - a), so a
+    ternary search of fixed length finds the minimizing t (to 1e-8 of the
+    segment after 48 steps), and the capsule is then the sphere of its
+    radius centred there.  The search runs on detached inputs: by the
+    envelope theorem the derivative of the minimum is the derivative at the
+    fixed minimizer, which the final sphere query supplies."""
+    radius, hl = params_cap[0], params_cap[1]
+    axis_w = R_c[:, 2]
+    a_w = p_c - hl[None] * axis_w
+    b_w = p_c + hl[None] * axis_w
+    # Segment end points in the shape's frame, for the search's objective.
+    a_l = mat3.tmv(R_s, a_w - p_s).detach()
+    d_l = mat3.tmv(R_s, b_w - p_s).detach() - a_l
+    prm = params_s.detach()[:, None]
+    lo = torch.zeros_like(a_l[0])
+    hi = torch.ones_like(lo)
+    for _ in range(_TERNARY_STEPS):
+        third = (hi - lo) / 3.0
+        m = torch.stack([lo + third, hi - third], dim=0)  # (2, P, N)
+        phi = _point_shape_phi(shape_type, prm,
+                               a_l[:, None] + m[None] * d_l[:, None])
+        pick = phi[0] < phi[1]
+        lo, hi = torch.where(pick, lo, m[0]), torch.where(pick, m[1], hi)
+    t = 0.5 * (lo + hi)
+    center = a_w + t[None] * (b_w - a_w)
+    return sphere_vs_point_shape(shape_type, params_s, R_s, p_s, center,
+                                 radius)
+
+
 # -- pair dispatch + force law ----------------------------------------------
 
 
@@ -282,6 +374,13 @@ def _pair_distance(ta, prm_a, Ra, pa, tb, prm_b, Rb, pb):
         return phi, -n, wb, wa
     if ta == GeomType.BOX and tb == GeomType.BOX:
         return box_vs_box(prm_a, Ra, pa, prm_b, Rb, pb)
+    if ta == GeomType.CAPSULE and tb == GeomType.CAPSULE:
+        return capsule_vs_capsule(prm_a, Ra, pa, prm_b, Rb, pb)
+    if ta == GeomType.CAPSULE and tb in _CAPSULE_SEARCH_SHAPES:
+        return capsule_vs_shape(prm_a, Ra, pa, tb, prm_b, Rb, pb)
+    if tb == GeomType.CAPSULE and ta in _CAPSULE_SEARCH_SHAPES:
+        phi, n, wa, wb = capsule_vs_shape(prm_b, Rb, pb, ta, prm_a, Ra, pa)
+        return phi, -n, wb, wa
     raise NotImplementedError(
         f"SoA pair ({ta.name}, {tb.name}); guard with supports_soa"
     )

@@ -1,4 +1,7 @@
-"""SoA inverse dynamics (counterpart of ``idto_tpu/soa/dynamics.py``).
+"""SoA inverse dynamics, and the mass matrix, bias forces and forward
+dynamics built on it (counterpart of ``idto_tpu/soa/dynamics.py`` and of
+``mass_matrix`` / ``bias_forces`` / ``forward_dynamics`` in
+``idto_tpu/models/dynamics.py``).
 
 tau = M(q) a + C(q,v) v + g(q) + D v - J(q)^T f_ext: body accelerations
 come from a second jvp through the kinematics, and the J^T action is the
@@ -9,6 +12,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 from torch.func import jvp, vjp
 
 from idto_tpu_torch.models.model import Model
@@ -70,3 +74,58 @@ def inverse_dynamics(
     _, vjp_fn = vjp(vel_of_v, v)
     (tau,) = vjp_fn((torque, force))
     return tau + model.damping.to(q.dtype)[:, None] * v
+
+
+def _mass_and_bias(model: Model, q, v, external_wrenches):
+    """(M (nv, nv, N), h (nv, N)) from one inverse-dynamics call.  ID is
+    affine in a, so column i of M is ID(q, 0, e_i) - ID(q, 0, 0); those
+    nv + 1 evaluations and h = ID(q, v, 0, wrenches) ride the instance axis
+    as nv + 2 blocks of N."""
+    nv, N = model.nv, q.shape[-1]
+    dtype, device = q.dtype, q.device
+    blocks = nv + 2
+    q_all = q[:, None, :].expand(model.nq, blocks, N).reshape(
+        model.nq, -1).contiguous()  # no stride-0 primal under jvp
+    zero_v = torch.zeros((nv, nv + 1, N), dtype=dtype, device=device)
+    v_all = torch.cat([zero_v, v[:, None, :]], dim=1).reshape(nv, -1)
+    eye = torch.eye(nv, dtype=dtype, device=device)[:, :, None].expand(
+        nv, nv, N)
+    a_all = torch.cat(
+        [eye, torch.zeros((nv, 2, N), dtype=dtype, device=device)], dim=1
+    ).reshape(nv, -1)
+    if external_wrenches is None:
+        wrenches = None
+    else:
+        wrenches = tuple(
+            torch.cat([w.new_zeros((3, w.shape[1], (nv + 1) * N)), w], dim=-1)
+            for w in external_wrenches
+        )
+    tau = inverse_dynamics(model, q_all, v_all, a_all, wrenches).reshape(
+        nv, blocks, N)
+    return tau[:, :nv] - tau[:, nv : nv + 1], tau[:, nv + 1]
+
+
+def mass_matrix(model: Model, q):
+    """M(q) = d(ID)/da, (nv, nv, N), symmetric positive definite."""
+    zero = torch.zeros((model.nv, q.shape[-1]), dtype=q.dtype, device=q.device)
+    return _mass_and_bias(model, q, zero, None)[0]
+
+
+def bias_forces(model: Model, q, v, external_wrenches: Optional[tuple] = None):
+    """h(q, v) = ID(q, v, 0): Coriolis, gravity and damping less the
+    external wrenches' generalized force; (nv, N)."""
+    return inverse_dynamics(model, q, v, torch.zeros_like(v),
+                            external_wrenches)
+
+
+def forward_dynamics(
+    model: Model, q, v, tau_applied,
+    external_wrenches: Optional[tuple] = None,
+):
+    """a = M(q)^{-1} (tau_applied - h(q, v)), (nv, N): what the simulator
+    integrates.  The solve reports nothing to the host (a singular M gives
+    inf/nan)."""
+    M, h = _mass_and_bias(model, q, v, external_wrenches)
+    rhs = (tau_applied - h).T[..., None]  # (N, nv, 1)
+    a = torch.linalg.solve_ex(M.permute(2, 0, 1), rhs, check_errors=False)
+    return a.result[..., 0].T

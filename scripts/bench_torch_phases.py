@@ -1,6 +1,7 @@
 """Per-phase time of one trust-region iteration of the PyTorch/CUDA port
 (``idto_tpu_torch``) on one NVIDIA GPU: the mini-cheetah, the constrained
-hopper, and the mini-cheetah MPC replan.
+hopper, the mini-cheetah MPC replan, the six manipulation examples
+(``--only fleet``) and one simulator substep of jaco (``--only simulator``).
 
 Times each phase of ``optimizer.batched.solve_trust_region_batched`` on
 the inputs ``chip_smoke.py`` uses (cyclic reduction, float64): the rollout
@@ -21,8 +22,14 @@ after ``mpc_initialize`` and one warm replan, one synchronize at the end,
 as the reference's bench chains them.
 
 Usage: python3 scripts/bench_torch_phases.py [--out PATH.json]
-           [--only cheetah,hopper,mpc,profile] [--profile-batch B]
-           [--package-root DIR]
+           [--only cheetah,hopper,mpc,profile,fleet,simulator]
+           [--profile-batch B] [--package-root DIR]
+
+``fleet`` gives the phase rows of kuka, jaco, jaco_ball, dual_jaco,
+allegro_hand and punyo at B=1 and at ``chip_smoke.FLEET_BATCH``;
+``simulator`` times one substep of jaco's simulated plant (contact query,
+forward dynamics, integration) at the YAML step and traces it for the
+host's launch and synchronization counts.
 
 ``--package-root`` names a directory that holds another checkout's
 ``idto_tpu_torch`` (for example the parent commit unpacked by ``git
@@ -139,18 +146,44 @@ def mpc_replans(n_replans=30):
 
 
 def profile_iteration(batch):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     model, prob, params, qg = cheetah_inputs(batch, 0, "cuda")
     params = params.replace(max_iterations=1)
     probs = broadcast_problem(prob, batch)
-    batched.solve_trust_region_batched(model, probs, params, qg)
+    return {"batch": batch, **profile_call(
+        lambda: batched.solve_trust_region_batched(model, probs, params, qg))}
+
+
+def simulator_substep():
+    """One substep of jaco's simulated plant (B=1, the stiffer simulation
+    contact, the YAML step) from q_init under zero control: median ms and
+    the profile of one call."""
+    from idto_tpu_torch.examples.registry import load_example, load_sim_plant
+    from idto_tpu_torch.mpc import simulator
+
+    model, cfg, prob, params, _ = load_example("jaco", device="cuda")
+    _, contact = load_sim_plant("jaco", params, device="cuda")
+    q, v = prob.q_init[None], prob.v_init[None]
+    u = torch.zeros((1, model.nu), dtype=q.dtype, device="cuda")
+
+    def step():
+        return simulator.sim_step(model, contact, cfg.sim_time_step, q, v, u)
+
+    ms, _ = timed(step, 10)
+    return {"example": "jaco", "batch": 1, "sim_substep_ms": ms,
+            **profile_call(step)}
+
+
+def profile_call(fn):
+    """Trace one call of fn (after a warm-up call) with torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        batched.solve_trust_region_batched(model, probs, params, qg)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side entries only: an operator's row repeats its kernels' time.
@@ -163,7 +196,6 @@ def profile_iteration(batch):
             if e.key.startswith(("cudaLaunchKernel", "cudaStreamSynchronize",
                                  "cudaMemcpy", "cudaDeviceSynchronize"))}
     return {
-        "batch": batch,
         "host_calls": host,
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -208,6 +240,15 @@ def main():
             emit(phases(batch, REPS, chip_smoke.hopper_inputs, "hopper"))
     if "mpc" in only:
         emit(mpc_replans())
+    if "fleet" in only:
+        for name in chip_smoke.FLEET:
+            for batch in (1, chip_smoke.FLEET_BATCH):
+                emit(phases(
+                    batch, REPS,
+                    lambda b, seed, dev, n=name: chip_smoke.fleet_inputs(
+                        n, b, seed, dev), name))
+    if "simulator" in only:
+        emit(simulator_substep())
     if "profile" in only:
         for batch in ([args.profile_batch] if args.profile_batch
                       else PROFILE_BATCHES):

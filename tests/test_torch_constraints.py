@@ -48,6 +48,10 @@ from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
 from idto_tpu_torch.soa import partials as soa_partials
 from idto_tpu_torch.soa import rollout
 
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
+
 RTOL = 1e-9
 # Multipliers and Newton step through cyclic reduction on the hopper.
 HOPPER_CR_RTOL = 1e-4

@@ -24,6 +24,10 @@ from idto_tpu_torch.ops import cyclic_reduction as tcr
 from idto_tpu_torch.ops import penta as tpenta
 from tests.test_penta import random_spd_penta
 
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
+
 RTOL = 1e-9
 
 

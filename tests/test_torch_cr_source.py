@@ -22,6 +22,10 @@ import torch
 
 from idto_tpu_torch.ops import cr_kernel
 
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
+
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_TESTS), "idto_tpu_torch", "csrc")
 

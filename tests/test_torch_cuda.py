@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA cyclic-reduction
 kernel against its plain PyTorch version (one and many right-hand sides, the
-hybrid's tail), and the cheetah slice, the constrained hopper solve and the
-cheetah replan chain on the card against the JAX package's golden solves.
-Without a card they skip.
+hybrid's tail), and the cheetah slice, the constrained hopper solve, the
+cheetah replan chain, the six manipulation examples and the spinner's closed
+loop on the card against the JAX package's golden solves; the capsule pair
+kernels and a simulator step on the card against the CPU.  Without a card
+they skip.
 
 This file imports neither JAX nor ``idto_tpu``, so it also runs where JAX is
 not installed:
@@ -20,11 +22,16 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import FLEET
 from idto_tpu_torch.examples.registry import load_example
 from idto_tpu_torch.ops import cr_kernel
 from idto_tpu_torch.ops import penta
 from idto_tpu_torch.optimizer.problem import LinearSolverType
 from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
 
 _GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "goldens", "torch_slice_cheetah.npz")
@@ -182,10 +189,23 @@ def test_mini_cheetah_on_card_matches_golden(cuda):
     (41, 3, 41, 3),     # spinner: K = 6 (register tiles)
     (41, 6, 121, 3),    # airhockey: K = 12
     (21, 19, 7, 3),     # register tiles of 38 with several right-hand sides
+    (41, 14, 241, 2),   # kuka, jaco: K = 28, R = 6 T + 1
+    (41, 21, 241, 2),   # dual_jaco's size, punyo: K = 42
+    (41, 23, 241, 8),   # allegro_hand: K = 46, four warps a block
+    (11, 14, 61, 2),    # jaco_ball: T = 10, six super-rows
+    # the Newton-step launches of the same examples, at the fleet's batch
+    (41, 14, 1, 8),
+    (41, 21, 1, 8),
+    (41, 23, 1, 8),
+    (11, 14, 1, 8),
+    (21, 21, 1, 8),     # dual_jaco's only launch: T = 20, K = 42
+    (41, 14, 1, 1),     # jaco's closed loop
+    (41, 5, 1, 1),      # the hopper's closed loop
 ])
 def test_cr_kernel_many_right_hand_sides_on_card(cuda, n, k, R, B, dtype, tol):
-    """The equality-constraint Schur solve's launch: R = n_h + 1 right-hand
-    sides in one call, against the plain version and a dense solve."""
+    """The launches of the constrained examples: the Schur solve's R =
+    n_h + 1 right-hand sides in one call, and the Newton step's one, against
+    the plain version and a dense solve."""
     rng = np.random.default_rng(13)
     bands, dense = _random_spd_penta(min(B, 3), n, k, rng)
     reps = -(-B // 3)
@@ -285,3 +305,114 @@ def test_cheetah_replan_on_card_matches_golden(cuda):
         assert cr_kernel.launches == before + 1
         assert _rel(sol.q[0].cpu(), ref[f"q_{i}"]) < 5e-6
         assert _rel(carry.Delta[0].cpu(), ref[f"Delta_{i}"]) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FLEET)
+def test_fleet_example_on_card_stays_near_golden(cuda, name):
+    """Two iterations of a manipulation example through the kernel (two
+    launches an iteration under equality constraints, one without) against
+    the JAX package's Thomas golden, at the loose tolerances of
+    tests/test_torch_fleet.py."""
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               f"torch_fleet_{name}.npz"))
+    iters = int(ref["max_iterations"])
+    model, _, prob, params, _ = load_example(name, device=cuda)
+    params = params.replace(max_iterations=iters,
+                            linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+    qg = torch.as_tensor(ref["q_guess"], device=cuda)
+    before = cr_kernel.launches
+    sol, stats, _ = solve_batch(model, broadcast_problem(prob, qg.shape[0]),
+                                params, qg)
+    torch.cuda.synchronize()
+    constrained = params.equality_constraints
+    assert cr_kernel.launches == before + (2 if constrained else 1) * iters
+    tol = 2e-2 if constrained else 1e-6
+    assert _rel(sol.q.cpu(), ref["q"]) < tol
+    assert _rel(stats.cost.cpu(), ref["cost"]) < tol
+
+
+@pytest.mark.cuda
+def test_capsule_pairs_and_sim_step_on_card_match_cpu(cuda):
+    """punyo's contact wrenches (capsule search included) and one simulator
+    step on the card against the same calls on the CPU: the same float64
+    expressions, so 1e-9."""
+    from idto_tpu_torch.mpc import simulator
+    from idto_tpu_torch.soa import contact
+
+    model, _, prob, params, q_guess = load_example("punyo", device="cpu")
+    rng = np.random.default_rng(3)
+    q = (q_guess[::8] + 0.05 * torch.as_tensor(
+        rng.standard_normal(tuple(q_guess[::8].shape))))
+    v = 0.3 * torch.as_tensor(rng.standard_normal((q.shape[0], model.nv)))
+    u = torch.zeros((q.shape[0], model.nu), dtype=q.dtype)
+    model_d = model.to(device=cuda)
+    for w_c, w_d in zip(
+            contact.contact_wrenches(model, q.T, v.T, params.contact),
+            contact.contact_wrenches(model_d, q.T.to(cuda), v.T.to(cuda),
+                                     params.contact)):
+        assert _rel(w_d.cpu(), w_c) < 1e-9
+    want = simulator.sim_step(model, params.contact, 1e-3, q, v, u)
+    got = simulator.sim_step(model_d, params.contact, 1e-3, q.to(cuda),
+                             v.to(cuda), u.to(cuda))
+    for x_d, x_c in zip(got, want):
+        assert _rel(x_d.cpu(), x_c) < 1e-9
+
+
+@pytest.mark.cuda
+def test_spinner_closed_loop_on_card_matches_golden(cuda):
+    """``run_mpc`` on the card (cyclic reduction: two launches a replan)
+    against the JAX package's golden loop, which went through Thomas."""
+    import dataclasses
+
+    from idto_tpu_torch.mpc import runner
+
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               "torch_closed_loop_spinner.npz"))
+    replans, init_iters = int(ref["replans"]), int(ref["init_iters"])
+    model, cfg, prob, params, q_guess = load_example("spinner", device=cuda)
+    params = params.replace(max_iterations=init_iters,
+                            linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+    cfg = dataclasses.replace(
+        cfg, sim_time=(replans + 0.5) / cfg.controller_frequency)
+    before = cr_kernel.launches
+    res = runner.run_mpc(model, cfg, prob, params, q_guess)
+    assert cr_kernel.launches == before + 2 * (init_iters + replans)
+    for key in ("q_log", "v_log", "u_log"):
+        assert _rel(getattr(res, key), ref[key]) < 1e-5, key
+
+
+@pytest.mark.cuda
+def test_jaco_closed_loop_on_card_overflows_where_the_golden_does(cuda):
+    """``run_mpc`` on jaco with the stiffer simulation contact of
+    ``load_sim_plant`` (cyclic reduction: K = 28, two launches a replan).
+    The loop is unstable in both packages: its first six substeps against
+    the JAX package's golden, each relative to its own largest entry, and
+    the substep where the state stops being finite (chip_smoke.py says why
+    no later substep can be held)."""
+    import dataclasses
+
+    import chip_smoke
+    from idto_tpu_torch.examples.registry import load_sim_plant
+    from idto_tpu_torch.mpc import runner
+
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               "torch_closed_loop_jaco.npz"))
+    replans, init_iters = int(ref["replans"]), int(ref["init_iters"])
+    model, cfg, prob, params, q_guess = load_example("jaco", device=cuda)
+    params = params.replace(max_iterations=init_iters,
+                            linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+    cfg = dataclasses.replace(
+        cfg, sim_time=(replans + 0.5) / cfg.controller_frequency)
+    sim_model, sim_contact = load_sim_plant("jaco", params, device=cuda)
+    assert sim_contact.stiffness == 10.0 * params.contact.stiffness
+    before = cr_kernel.launches
+    res = runner.run_mpc(model, cfg, prob, params, q_guess,
+                         sim_model=sim_model, sim_contact=sim_contact)
+    assert cr_kernel.launches == before + 2 * (init_iters + replans)
+    assert chip_smoke.first_nonfinite(res) == int(ref["first_nonfinite"])
+    held = chip_smoke.UNSTABLE_LOOP_HELD
+    for key in ("q_log", "v_log", "u_log"):
+        x, y = getattr(res, key)[:held], ref[key][:held]
+        err = np.abs(x - y).max(axis=1) / np.abs(y).max(axis=1)
+        assert err.max() < chip_smoke.UNSTABLE_LOOP_RTOL, (key, err)

@@ -33,6 +33,10 @@ from idto_tpu_torch.optimizer.partials import IdPartials
 from idto_tpu_torch.optimizer.problem import ProblemDefinition, ScalingMethod
 from tests.test_penta import random_spd_penta
 
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
+
 
 def _rel(a, b):
     a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)

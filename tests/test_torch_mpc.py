@@ -34,6 +34,10 @@ from idto_tpu_torch.mpc.trajectory_store import CubicSpline, StoredTrajectory
 from idto_tpu_torch.optimizer.solver import Solution
 from idto_tpu_torch.parallel.batching import broadcast_problem
 
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
+
 _GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "goldens", "torch_mpc_cheetah.npz")
 

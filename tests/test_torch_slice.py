@@ -29,6 +29,10 @@ from idto_tpu_torch.ops import cr_kernel
 from idto_tpu_torch.optimizer.problem import LinearSolverType
 from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
 
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
+
 RTOL = 1e-8
 _GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "goldens", "torch_slice_cheetah.npz")

@@ -9,6 +9,10 @@ import chip_smoke
 from idto_tpu_torch import convert
 from idto_tpu_torch.examples.registry import load_example
 
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
+
 
 def test_cr_work_is_the_hand_reckoned_count_for_the_cheetah():
     """rows = 11 super-rows of K = 38, one right-hand side, float64."""
@@ -105,3 +109,27 @@ def test_smoke_shapes_are_the_examples_own():
         shapes.append((prob.num_steps + 1, model.nq,
                        prob.num_steps * len(model.unactuated_vdofs) + 1))
     assert tuple(shapes) == chip_smoke.SCHUR_SHAPES
+
+
+def test_smoke_holds_every_launch_shape_of_the_fleet_and_the_closed_loops():
+    """Every (T + 1, nq, R) the fleet path and the two closed loops launch
+    the kernel at (R = T n_un + 1 for the Schur solve under equality
+    constraints, R = 1 for the Newton step) is among the shapes
+    chip_smoke.py holds against the plain version, and it holds no other."""
+    def launches(name):
+        model, _, prob, params, _ = load_example(name, device="cpu")
+        n, k = prob.num_steps + 1, model.nq
+        out = {(n, k, 1)}
+        if params.equality_constraints and model.unactuated_vdofs:
+            out.add((n, k, prob.num_steps * len(model.unactuated_vdofs) + 1))
+        return out
+
+    fleet = set().union(*(launches(name) for name in chip_smoke.FLEET))
+    assert fleet == set(chip_smoke.FLEET_SCHUR_SHAPES
+                        + chip_smoke.FLEET_STEP_SHAPES)
+    assert all(R > 1 for _, _, R in chip_smoke.FLEET_SCHUR_SHAPES)
+    assert all(R == 1 for _, _, R in chip_smoke.FLEET_STEP_SHAPES)
+    assert launches(chip_smoke.CLOSED_LOOP_EXAMPLE) == set(
+        chip_smoke.CLOSED_LOOP_SHAPES)
+    # jaco's loop runs at B=1, where the fleet's shapes are held too
+    assert launches(chip_smoke.UNSTABLE_LOOP_EXAMPLE) <= fleet

@@ -10,6 +10,8 @@ the stated tolerances are 1e-10 relative (1e-9 for the partials, which
 pass through three nested forward/reverse derivatives).  The JAX side is
 jitted: its eager partials take minutes on the cheetah.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,12 @@ from idto_tpu_torch.soa import kinematics as tkin
 from idto_tpu_torch.soa import partials as tpart
 from idto_tpu_torch.soa import rollout as troll
 
+# One intra-op thread: these tensors are tiny, and several test workers with
+# a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
+torch.set_num_threads(1)
+
+_GOLDENS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "goldens")
 B, T = 2, 4
 RTOL = 1e-10
 RTOL_PARTIALS = 1e-9
@@ -138,3 +146,257 @@ def test_partials(case):
         assert _rel(x_t, x_j) < RTOL_PARTIALS
     assert _rel(tpart.nplus_stack_batched(case["tm"], torch.tensor(qs)),
                 jpart.nplus_stack_batched(jm, jnp.asarray(qs))) < RTOL
+
+
+# -- capsule pairs and punyo: the JAX SoA layer has no capsule pairs, so the
+# oracle is the AoS distance and force law -----------------------------------
+
+N_POSES = 300
+# Distances, normals and witnesses of one pair: the same float64 expressions
+# on both sides, the 48 search steps included.
+RTOL_PAIR = 1e-10
+# Normal and witnesses of a pair that goes through the search along the
+# capsule's axis.  48 steps resolve the minimizer to (2/3)^48 = 3.5e-9 of the
+# segment, and over the last steps the two distances compared differ by
+# less than rounding, so two implementations of the same arithmetic (XLA
+# contracts multiply-adds, PyTorch does not) end 1e-8..1e-7 apart on the
+# axis; the distance, flat there, still agrees to 1e-10.  With the axis
+# parallel to a face the minimizer is a whole interval and the witnesses
+# are not unique: those poses are held on distance and normal alone.
+TOL_SEARCHED = 1e-6
+N_PARALLEL = 40  # the first poses of _pair_poses
+_CLOSED_FORM_PAIRS = ("capsule-capsule", "capsule-halfspace")
+# Wrenches and step_tau of punyo sum 36 pairs through FK of 21 coordinates.
+# The searched pairs' witnesses differ by ~1e-8 between the packages
+# (TOL_SEARCHED below), and with them the moment arms: 1.3e-9 on the torques.
+RTOL_PUNYO = 1e-8
+# Forward-mode derivatives against central differences with a step of 1e-6:
+# truncation ~1e-12 and rounding ~1e-16 / 1e-6, relative to the largest
+# entry.
+TOL_FD = 1e-8
+
+_CAPSULE_PAIRS = {
+    "capsule-capsule": ("CAPSULE", [0.05, 0.2], "CAPSULE", [0.08, 0.15]),
+    "capsule-box": ("CAPSULE", [0.05, 0.25], "BOX", [0.3, 0.2, 0.1]),
+    "box-capsule": ("BOX", [0.15, 0.2, 0.25], "CAPSULE", [0.06, 0.3]),
+    "capsule-cylinder": ("CAPSULE", [0.05, 0.2], "CYLINDER", [0.2, 0.1]),
+    "capsule-halfspace": ("CAPSULE", [0.05, 0.2], "HALFSPACE", []),
+}
+
+
+def _random_rotations(rng, n):
+    quat = rng.standard_normal((n, 4))
+    w, x, y, z = (quat / np.linalg.norm(quat, axis=1, keepdims=True)).T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                  2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                  1 - 2 * (x * x + y * y)], -1),
+    ], 1)
+
+
+def _pair_poses(rng, prm_a, prm_b):
+    """N_POSES poses: random ones from well separated to deeply penetrating,
+    then parallel axes, exactly touching surfaces and coincident centres."""
+    n = N_POSES
+    R_a, R_b = _random_rotations(rng, n), _random_rotations(rng, n)
+    p_a = rng.uniform(-0.3, 0.3, (n, 3))
+    p_b = rng.uniform(-0.3, 0.3, (n, 3))
+    # Parallel: the same attitude, or both frames on the world axes.
+    R_b[:N_PARALLEL] = R_a[:N_PARALLEL]
+    R_a[20:N_PARALLEL] = R_b[20:N_PARALLEL] = np.eye(3)
+    # Touching along x at the sum of the x extents, frames on the axes.
+    ext_a = prm_a[0] if prm_a else 0.0
+    ext_b = prm_b[0] if prm_b else 0.0
+    R_a[40:50] = R_b[40:50] = np.eye(3)
+    p_b[40:50] = p_a[40:50] + [ext_a + ext_b, 0.0, 0.0]
+    # Centres a hair apart: deep penetration.
+    p_b[50:60] = p_a[50:60] + 1e-3 * rng.standard_normal((10, 3))
+    return R_a, p_a, R_b, p_b
+
+
+@pytest.mark.parametrize("pair", sorted(_CAPSULE_PAIRS))
+def test_capsule_pairs_match_aos_distance(pair):
+    from idto_tpu.geometry.distance import signed_distance
+    from idto_tpu.models.model import GeomType as JGeom
+    from idto_tpu_torch.models.model import GeomType as TGeom
+
+    ta, prm_a, tb, prm_b = _CAPSULE_PAIRS[pair]
+    rng = np.random.default_rng(sorted(_CAPSULE_PAIRS).index(pair))
+    R_a, p_a, R_b, p_b = _pair_poses(rng, prm_a, prm_b)
+    pa3 = np.zeros(3)
+    pa3[: len(prm_a)] = prm_a
+    pb3 = np.zeros(3)
+    pb3[: len(prm_b)] = prm_b
+    ref = jax.jit(jax.vmap(
+        lambda Ra, xa, Rb, xb: signed_distance(
+            JGeom[ta], jnp.asarray(pa3), Ra, xa,
+            JGeom[tb], jnp.asarray(pb3), Rb, xb)
+    ))(*(jnp.asarray(x) for x in (R_a, p_a, R_b, p_b)))
+
+    def soa_R(R):  # (N, 3, 3) -> (3, 3, 1, N)
+        return torch.tensor(R).permute(1, 2, 0)[:, :, None]
+
+    def soa_p(p):  # (N, 3) -> (3, 1, N)
+        return torch.tensor(p).T[:, None]
+
+    out = tcon._pair_distance(
+        TGeom[ta], torch.tensor(pa3)[:, None, None], soa_R(R_a), soa_p(p_a),
+        TGeom[tb], torch.tensor(pb3)[:, None, None], soa_R(R_b), soa_p(p_b))
+    phi, nhat, wa, wb = (np.asarray(x) for x in out)
+    phi_j, n_j, wa_j, wb_j = (np.asarray(x) for x in ref)
+    assert (phi_j < 0).sum() > 20 and (phi_j > 0).sum() > 20
+    assert np.abs(phi[0] - phi_j).max() < RTOL_PAIR
+    errs = [np.abs(x_t[:, 0].T - x_j).max(axis=1)
+            for x_t, x_j in ((nhat, n_j), (wa, wa_j), (wb, wb_j))]
+    if pair in _CLOSED_FORM_PAIRS:
+        assert max(e.max() for e in errs) < RTOL_PAIR
+    else:
+        assert errs[0].max() < TOL_SEARCHED
+        unique = slice(N_PARALLEL, None)
+        assert max(e[unique].max() for e in errs[1:]) < TOL_SEARCHED
+    # Everywhere, the port's witnesses are phi apart along its normal.
+    # (guarded norms put sqrt(1e-12) into the cylinder's distance).
+    assert np.abs((wb - wa) - phi * nhat).max() < 2e-6
+
+
+@pytest.fixture(scope="module")
+def punyo():
+    jm, _, jprob, jparams, jqg = jax_load_example("punyo")
+    rng = np.random.default_rng(3)
+    n = 6
+    # States along the initial guess, where arms and ball touch, with noise.
+    knots = np.asarray(jqg)[rng.integers(0, jprob.num_steps + 1, n)]
+    q = (knots + 0.05 * rng.standard_normal(knots.shape)).T
+    v = 0.3 * rng.standard_normal((jm.nv, n))
+    a = 0.2 * rng.standard_normal((jm.nv, n))
+    tm = convert.model(jm, device="cpu")
+    assert not jcon.supports_soa(jm) and tcon.supports_soa(tm)
+    return dict(jm=jm, jc=jparams.contact, tm=tm,
+                tc=convert.solver_params(jparams).contact, q=q, v=v, a=a)
+
+
+def test_punyo_wrenches_and_step_tau_match_aos(punyo):
+    from idto_tpu.contact.force import contact_wrenches as aos_wrenches
+    from idto_tpu.optimizer.trajectory import step_tau as aos_step_tau
+
+    jm, jc, tm, tc = (punyo[k] for k in ("jm", "jc", "tm", "tc"))
+    q, v, a = (punyo[k] for k in ("q", "v", "a"))
+    tq_j, f_j = jax.jit(jax.vmap(
+        lambda qq, vv: aos_wrenches(jm, qq, vv, jc)
+    ))(jnp.asarray(q.T), jnp.asarray(v.T))
+    tq_t, f_t = tcon.contact_wrenches(tm, torch.tensor(q), torch.tensor(v), tc)
+    assert np.abs(np.asarray(f_j)).max() > 1.0  # the contacts are active
+    # (3, nl, N) against (N, nl, 3)
+    assert _rel(tq_t.permute(2, 1, 0), tq_j) < RTOL_PUNYO
+    assert _rel(f_t.permute(2, 1, 0), f_j) < RTOL_PUNYO
+    tau_j = jax.jit(jax.vmap(
+        lambda qq, vv, aa: aos_step_tau(jm, jc, qq, vv, aa)
+    ))(*(jnp.asarray(x.T) for x in (q, v, a)))
+    tau_t = tcon.step_tau(tm, tc, *(torch.tensor(x) for x in (q, v, a)))
+    assert _rel(tau_t.T, tau_j) < RTOL_PUNYO
+
+
+def test_punyo_partials_match_central_differences(punyo):
+    """dtau/dq of step_tau, through the capsule pairs, against central
+    differences of the port's own step_tau.
+
+    The search's minimizer is held fixed under differentiation (as the
+    reference's stop_gradient holds it).  By the envelope theorem that
+    leaves the derivative of the distance exact, but not that of the
+    witness points and the normal, which move with the minimizer: at the
+    YAML smoothing (0.01 m) punyo's forearm capsules lie 3-14 mm above the
+    ground box, those pairs carry force, and dtau/dq differs from central
+    differences by up to 1.0 on entries of size 1 (in both packages: the
+    port's derivative equals ``jacfwd`` of the reference's AoS step_tau to
+    4e-11 there).  With the smoothing at 0.1 mm the ground pairs carry no
+    force (exp(-30)), the arm-ball, arm-arm and ball-ground contacts stay
+    active, and the derivative must be the exact one."""
+    import dataclasses
+
+    tm = punyo["tm"]
+    tc = dataclasses.replace(punyo["tc"], smoothing_factor=1e-4)
+    q, v, a = (torch.tensor(punyo[k]) for k in ("q", "v", "a"))
+
+    def f(qq):
+        return tcon.step_tau(tm, tc, qq, v, a)
+
+    Gq = tpart._jac_rows(f, q, tm.nq)  # (nq, nv, n)
+    assert float(Gq.abs().max()) > 100.0  # contact stiffness is in there
+    eps = 1e-6
+    for j in range(tm.nq):
+        e = torch.zeros_like(q)
+        e[j] = eps
+        fd = (f(q + e) - f(q - e)) / (2 * eps)
+        assert float((Gq[j] - fd).abs().max()) < TOL_FD * float(
+            Gq.abs().max()), j
+
+
+def test_punyo_partials_match_jacfwd_of_the_aos_reference(punyo):
+    """dtau/dq at the YAML contact parameters, the configuration the solver
+    runs, where central differences do not apply (see above): the port's
+    forward-mode rows against ``jacfwd`` of the reference's AoS ``step_tau``
+    on the same six states (goldens/torch_partials_punyo.npz, from
+    ``scripts/make_torch_goldens.py partials``).  Both hold the search's
+    minimizer fixed, so the same expressions are differentiated; the
+    minimizers themselves end ~1e-8 apart (TOL_SEARCHED), which shows as
+    3.6e-11 of the largest entry: held to RTOL_PARTIALS."""
+    ref = np.load(os.path.join(_GOLDENS, "torch_partials_punyo.npz"))
+    tm, tc = punyo["tm"], punyo["tc"]
+    for key in ("q", "v", "a"):
+        assert np.array_equal(ref[key].T, punyo[key]), key
+    q, v, a = (torch.tensor(punyo[k]) for k in ("q", "v", "a"))
+    Gq = tpart._jac_rows(lambda qq: tcon.step_tau(tm, tc, qq, v, a), q,
+                         tm.nq)  # (nq, nv, n)
+    want = ref["dtau_dq"]  # (n, nv, nq)
+    assert want.shape == (q.shape[1], tm.nv, tm.nq)
+    assert np.abs(want).max() > 100.0
+    assert _rel(Gq.permute(2, 1, 0), want) < RTOL_PARTIALS
+
+
+def test_capsule_search_distance_derivative_is_exact():
+    """The envelope theorem on the searched distance itself: d phi by
+    forward mode through ``capsule_vs_shape`` (minimizer held fixed) equals
+    central differences of phi (minimizer free), on random poses of a
+    capsule against a box, moved along a random translation and turned
+    about a random axis.  Held where the capsule's axis stays outside the
+    box: inside it the point distance is a maximum over faces, the minimum
+    along the axis sits on a kink between two of them, and no derivative at
+    a fixed minimizer is the derivative of the minimum (the reference's is
+    not either).  Contacts that deep, a radius and more, are past what the
+    force law is used for."""
+    from torch.func import jvp
+
+    from idto_tpu_torch.models.model import GeomType as TGeom
+    from idto_tpu_torch.models.rotations import axis_angle_to_rot
+
+    rng = np.random.default_rng(11)
+    n = 64
+    prm_c = torch.tensor([0.05, 0.25, 0.0])[:, None, None]
+    prm_b = torch.tensor([0.3, 0.2, 0.1])[:, None, None]
+    R_c = torch.tensor(_random_rotations(rng, n)).permute(1, 2, 0)[:, :, None]
+    R_b = torch.tensor(_random_rotations(rng, n)).permute(1, 2, 0)[:, :, None]
+    p_c = torch.tensor(rng.uniform(-0.4, 0.4, (n, 3))).T[:, None]
+    p_b = torch.zeros_like(p_c)
+    axis = torch.tensor(_random_rotations(rng, 1)[0, :, :1])  # (3, 1)
+    shift = torch.tensor(rng.standard_normal(3))[:, None, None]
+
+    def phi(x):
+        """The capsule turned by x about ``axis`` and moved by x shift."""
+        dR = axis_angle_to_rot(axis, x.reshape(1, -1))  # (3, 3, 1, n)
+        return tcon.capsule_vs_shape(
+            prm_c, torch.einsum("ikpn,kjpn->ijpn", dR, R_c),
+            p_c + x * shift, TGeom.BOX, prm_b, R_b, p_b)[0]
+
+    x0 = torch.zeros((1, n), dtype=torch.float64)
+    d_ad = jvp(phi, (x0,), (torch.ones_like(x0),))[1]
+    eps = 1e-6
+    d_fd = (phi(x0 + eps) - phi(x0 - eps)) / (2 * eps)
+    outside = phi(x0) > -float(prm_c[0]) + 1e-3
+    assert 40 < int(outside.sum()) < n
+    assert float(d_fd[outside].abs().max()) > 0.5
+    # The minimizer is known to 3.5e-9 of the segment, so the derivative
+    # taken there is off by that times the mixed second derivative: ~1e-8.
+    assert float((d_ad - d_fd)[outside].abs().max()) < 1e-7
