@@ -65,7 +65,27 @@ exits non-zero without the final result line:
                  run one by one, the first replan period must stay finite,
                  and the loop must turn non-finite at the substep where the
                  CPU run does.
-  9. times    -- one solve iteration at several batch sizes; the kernel,
+  9. options  -- the solver options, the object API and the velocity
+                 command, in float64, each held against the port's own CPU
+                 run of the same inputs: (a) ``TrajectoryOptimizer`` on the
+                 cheetah at its YAML size with cyclic reduction, ``Solve``
+                 of 3 iterations then ``SolveFromWarmStart`` of 1 (4
+                 launches); (b) the velocity-command MPC on the cheetah,
+                 ``mpc_initialize`` and 5 replans at 60 Hz, each followed
+                 by 17 simulated substeps, the command changing at replans
+                 2 and 4 (1 launch a replan); (c) central-difference
+                 partials on the cheetah at B=8, 2 iterations (2 launches),
+                 against the AUTODIFF run; (d) Armijo on the cheetah and
+                 backtracking on the constrained hopper (no launch); (e)
+                 ``DENSE_LDLT`` on the cheetah and the exact Hessian on the
+                 spinner (no launch); (f) ``verbose``,
+                 ``debug_compare_against_dense`` and
+                 ``record_iteration_times`` on the cheetah at B=1 (1 launch
+                 an iteration).  Informational times: an API iteration, a
+                 replan, an FD iteration of each order against AUTODIFF, a
+                 linesearch and a dense iteration, and the dense LU solve of
+                 a cheetah Hessian against the kernel's.
+ 10. times    -- one solve iteration at several batch sizes; the kernel,
                  the whole ``solve_many`` call, the plain version and a
                  dense library solve at the cheetah shape, with CUDA
                  events, beside the least time the card could take; the
@@ -172,6 +192,42 @@ UNSTABLE_LOOP_REPLANS = 2
 # of the overflow is held.
 UNSTABLE_LOOP_HELD = 6
 UNSTABLE_LOOP_RTOL = 1e-8
+# The options phase.  The cheetah at the YAML's own guess is ill-conditioned
+# (the scaled Hessian of the first iteration: condition 8.8e9), and cyclic
+# reduction solves it to 3e-4..7e-4 of a dense solve, in the JAX package's
+# algorithm as in the port's (Thomas: 3e-8).  So rounding differences
+# between two runs of one float64 algorithm grow to what these bounds hold,
+# each 15-50x the difference measured between the port's Thomas and cyclic
+# reduction on the CPU at the same inputs: the API's q 1e-5 (2.0e-7), its
+# costs 1e-4, the warm start's steps dq and dqH 1e-2 (3.0e-4).
+API_RTOL = {"q": 1e-5, "cost": 1e-4, "step": 1e-2}
+API_ITERS = (3, 1)
+# The velocity command: the initial solve cut to VC_INIT_ITERS iterations,
+# VC_REPLANS replans, the command (vx, vy, wz) from the schedule.  Plans
+# and simulated states against the CPU run: five chained replans from the
+# YAML's state, each the ill-conditioned step above (5.5e-6 on the plans,
+# 9.3e-7 on the simulated q on an H100), so 1e-4.
+VC_INIT_ITERS = 2
+VC_REPLANS = 5
+VC_SCHEDULE = "0: 0.4 0 0; 0.033: 0.4 0 0.3; 0.066: 0.5 0 0"
+VC_RTOL = 1e-4
+# Finite differences against the exact partials after two iterations: the
+# central differences' partials differ from the exact ones by ~1e-10
+# (4.4e-8 on q after two iterations on the CPU).
+FD_BATCH = 8
+FD_ITERS = 2
+FD_RTOL = 1e-6
+# The linesearch, dense and exact-Hessian solves against the CPU run: the
+# same float64 algorithms in other summation orders.  On the CPU a 1e-15
+# relative change of the guess moves their q by up to 1.5e-8 (the exact
+# Hessian on the spinner; 1.9e-10 Armijo, 3.8e-10 backtracking, 1.2e-11
+# dense), so 1e-6.
+OPTIONS_RTOL = 1e-6
+OPTIONS_ITERS = 2
+# Cyclic reduction against a dense solve on those Hessians (3e-4..7e-4 on
+# the CPU, as above): the kernel against the dense LU, and each line of the
+# dense cross-check through the kernel, held to 1e-2.
+CR_VS_DENSE_TOL = 1e-2
 # Peak rates of one H100 SXM (NVIDIA H100 data sheet): HBM3 bandwidth;
 # float64 on the tensor cores and on the FMA pipes; float32 on the FMA
 # pipes (the kernel uses no TF32).
@@ -1074,6 +1130,342 @@ def phase_closed_loop():
     return total, replan_ms, period_ms
 
 
+def options_inputs(name, device, batch=1, seed=0, **more):
+    """An example at its YAML size in float64 on ``device``, cyclic
+    reduction and OPTIONS_ITERS iterations unless ``more`` says otherwise,
+    and ``batch`` q guesses: the example's guess plus 0.01 N(0, 1) noise
+    from ``seed`` (none at batch 1), q_0 pinned to q_init."""
+    import numpy as np
+    import torch
+
+    from idto_tpu_torch.examples.registry import load_example
+    from idto_tpu_torch.optimizer.problem import LinearSolverType
+
+    model, cfg, prob, params, q_guess = load_example(
+        name, dtype=torch.float64, device=device)
+    params = params.replace(**{
+        "linear_solver": LinearSolverType.CYCLIC_REDUCTION,
+        "max_iterations": OPTIONS_ITERS, **more})
+    qg = q_guess.cpu().numpy()[None].repeat(batch, 0)
+    if batch > 1:
+        qg = qg + 0.01 * np.random.default_rng(seed).standard_normal(
+            qg.shape)
+    qg[:, 0] = prob.q_init.cpu().numpy()
+    return model, cfg, prob, params, torch.as_tensor(qg, device=device)
+
+
+def timed(fn):
+    """(fn(), host-clock ms around it with a synchronize on each side)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def api_run(device):
+    """(a): Solve, then SolveFromWarmStart from its result; returns the
+    arrays compared, the launches of each call and the host-clock ms of
+    each."""
+    import torch
+
+    from idto_tpu_torch.api import TrajectoryOptimizer
+    from idto_tpu_torch.ops import cr_kernel
+
+    model, _, prob, params, qg = options_inputs("mini_cheetah", device)
+    n_solve, n_warm = API_ITERS
+    opt = TrajectoryOptimizer(model, prob,
+                              params.replace(max_iterations=n_solve))
+    warm_opt = TrajectoryOptimizer(model, prob,
+                                   params.replace(max_iterations=n_warm))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out, launches, ms = {}, [], []
+
+    def measured(call):
+        before = cr_kernel.launches
+        sync()
+        t0 = time.perf_counter()
+        sol, stats = call()
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(cr_kernel.launches - before)
+        return sol, stats
+
+    sol, stats = measured(lambda: opt.Solve(qg[0]))
+    out.update(solve_q=sol.q, solve_cost=stats.cost)
+    ws = warm_opt.CreateWarmStart(sol.q)
+    sol, stats = measured(lambda: warm_opt.SolveFromWarmStart(ws))
+    out.update(warm_q=sol.q, warm_cost=stats.cost, ws_q=ws.q,
+               ws_Delta=torch.tensor(ws.Delta, dtype=torch.float64),
+               ws_dq=torch.as_tensor(ws.dq), ws_dqH=torch.as_tensor(ws.dqH))
+    return out, launches, ms
+
+
+def velocity_run(device):
+    """(b): the velocity-command loop; returns the plans, the simulated
+    q log, the launches and host-clock ms of each replan."""
+    import numpy as np
+    import torch
+
+    from idto_tpu_torch.examples.registry import load_sim_plant
+    from idto_tpu_torch.examples.velocity_command import (
+        command_at,
+        parse_schedule,
+    )
+    from idto_tpu_torch.mpc import controller as mpc
+    from idto_tpu_torch.mpc.simulator import simulate_segment
+    from idto_tpu_torch.ops import cr_kernel
+    from idto_tpu_torch.parallel.batching import broadcast_problem
+
+    model, cfg, prob, params, qg = options_inputs(
+        "mini_cheetah", device, max_iterations=VC_INIT_ITERS)
+    sim_model, sim_contact = load_sim_plant("mini_cheetah", params,
+                                            device=device)
+    sim_model = sim_model if sim_model is not None else model
+    sim_contact = sim_contact if sim_contact is not None else params.contact
+    schedule = parse_schedule(VC_SCHEDULE)
+    replan = 1.0 / cfg.controller_frequency
+    h = cfg.sim_time_step
+    substeps = max(1, int(round(replan / h)))
+    mpc_params = mpc.make_mpc_params(params, cfg.mpc_iters)
+    Kp, Kd = (torch.as_tensor(np.asarray(x, dtype=np.float64),
+                              device=device) for x in (cfg.Kp, cfg.Kd))
+    probs = broadcast_problem(prob, 1)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    carry, _ = mpc.mpc_initialize(model, probs, params, qg)
+    q, v = prob.q_init[None], prob.v_init[None]
+    plans, logs, launches, ms, cmds = [], [q.cpu()], [], [], []
+    for k in range(VC_REPLANS):
+        t_now = k * replan
+        cmds.append(command_at(schedule, t_now))
+        cmd = torch.tensor(cmds[-1], dtype=torch.float64, device=device)
+        before = cr_kernel.launches
+        sync()
+        t0 = time.perf_counter()
+        carry, sol = mpc.mpc_step_velocity_command(
+            model, probs, mpc_params, carry, torch.cat([q, v], dim=1), t_now,
+            cmd)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(cr_kernel.launches - before)
+        plans.append(sol.q[0].cpu())
+        q, v, log = simulate_segment(sim_model, sim_contact, h, substeps,
+                                     carry.stored, Kp, Kd, q, v, t_now,
+                                     cfg.feed_forward)
+        logs.append(log[0][0].cpu())
+    return (torch.stack(plans), torch.cat(logs), launches, ms, cmds,
+            substeps, cfg)
+
+
+def phase_options(seed):
+    """The options phase on the card; returns the launches of (a), (b),
+    (c) and (f) by path and the informational times."""
+    import numpy as np
+    import torch
+
+    from idto_tpu_torch.ops import cr_kernel, penta
+    from idto_tpu_torch.optimizer import solver
+    from idto_tpu_torch.optimizer.problem import (
+        GradientsMethod,
+        LinearSolverType,
+        LinesearchMethod,
+        SolverMethod,
+    )
+    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    # The kernel at the shapes of this phase's launches: the cheetah's
+    # Newton step at B=1 (a, b, f) and B=FD_BATCH (c).
+    for B in (1, FD_BATCH):
+        check_kernel(gen, CHEETAH_N, CHEETAH_K, B, 1, torch.float64)
+    launches, times = {}, {}
+
+    # (a) the object API.
+    cr_kernel.launches = 0
+    out, n, ms = api_run("cuda")
+    launches["api"] = cr_kernel.launches
+    if n != list(API_ITERS):
+        raise AssertionError(f"options: API launches {n}, expected "
+                             f"{list(API_ITERS)}")
+    ref, _, _ = api_run("cpu")
+    errs = {k: rel_err(out[k].cpu(), ref[k]) for k in out}
+    times["api_iteration_ms"] = ms[0] / API_ITERS[0]
+    log("options", f"(a) TrajectoryOptimizer mini_cheetah B=1 float64 CR: "
+                   f"Solve {ms[0]:.1f} ms ({API_ITERS[0]} iterations, "
+                   f"{times['api_iteration_ms']:.1f} ms each), "
+                   f"SolveFromWarmStart {ms[1]:.1f} ms (1); launches {n}; "
+                   f"card vs CPU " + ", ".join(
+                       f"{k} {e:.2e}" for k, e in errs.items())
+                   + f" (tol q {API_RTOL['q']:g}, cost {API_RTOL['cost']:g}, "
+                   f"dq/dqH {API_RTOL['step']:g})")
+    for k, e in errs.items():
+        kind = ("step" if k in ("ws_dq", "ws_dqH") else
+                "cost" if k.endswith("cost") else "q")
+        if e > API_RTOL[kind]:
+            raise AssertionError(f"options: API {k} disagrees with the CPU")
+
+    # (b) the velocity-command MPC.
+    cr_kernel.launches = 0
+    plans, q_log, n, ms, cmds, substeps, cfg = velocity_run("cuda")
+    launches["velocity_command"] = cr_kernel.launches
+    if n != [cfg.mpc_iters] * VC_REPLANS:
+        raise AssertionError(f"options: velocity-command launches {n}")
+    if not (torch.isfinite(plans).all() and torch.isfinite(q_log).all()):
+        raise AssertionError("options: velocity command went non-finite")
+    plans_c, q_log_c, _, _, _, _, _ = velocity_run("cpu")
+    e_plan = rel_err(plans, plans_c)
+    e_sim = rel_err(q_log, q_log_c)
+    # The planned base x displacement over each horizon (T dt = 1 s), and
+    # the simulated one over the 5 periods (85 ms: the cheetah starts from
+    # rest and first settles, so its sign is printed, not held).
+    plan_dx = (plans[:, -1, 4] - plans[:, 0, 4]).tolist()
+    dx = float(q_log[-1, 4] - q_log[0, 4])
+    times["velocity_replan_ms"] = statistics.median(ms[1:])
+    log("options", f"(b) velocity command mini_cheetah B=1 float64 CR: "
+                   f"{VC_REPLANS} replans of {substeps} substeps, commands "
+                   f"{cmds}, launches {n}, replan ms "
+                   + " ".join(f"{x:.1f}" for x in ms)
+                   + f" (median after the first "
+                   f"{times['velocity_replan_ms']:.1f}); planned base dx "
+                   + " ".join(f"{x:+.4f}" for x in plan_dx)
+                   + f" m; simulated base dx {dx:+.4f} m "
+                   f"dy {float(q_log[-1, 5] - q_log[0, 5]):+.4f} m; card vs "
+                   f"CPU plans {e_plan:.2e}, simulated q {e_sim:.2e} (tol "
+                   f"{VC_RTOL:g})")
+    if not (e_plan <= VC_RTOL and e_sim <= VC_RTOL):
+        raise AssertionError("options: velocity command disagrees with CPU")
+    if not all(x * c[0] > 0 for x, c in zip(plan_dx, cmds)):
+        raise AssertionError("options: a plan moves against the command")
+
+    # (c) finite-difference partials against AUTODIFF; times of each order.
+    model, _, prob, params, qg = options_inputs(
+        "mini_cheetah", "cuda", FD_BATCH, seed, max_iterations=FD_ITERS)
+    probs = broadcast_problem(prob, FD_BATCH)
+    cr_kernel.launches = 0
+    (sol_fd, st_fd, _), fd_ms = timed(lambda: solve_batch(
+        model, probs, params.replace(
+            gradients_method=GradientsMethod.CENTRAL_DIFFERENCES), qg))
+    launches["fd_partials"] = cr_kernel.launches
+    if cr_kernel.launches != FD_ITERS:
+        raise AssertionError(f"options: FD launches {cr_kernel.launches}")
+    (sol_ad, st_ad, _), ad_ms = timed(
+        lambda: solve_batch(model, probs, params, qg))
+    e_fd = rel_err(sol_fd.q, sol_ad.q)
+    # One iteration of each gradients method, at B=1 and B=FD_BATCH.
+    fd_times = {}
+    for B in (1, FD_BATCH):
+        probs_b = broadcast_problem(prob, B)
+        for gm in (GradientsMethod.FORWARD_DIFFERENCES,
+                   GradientsMethod.CENTRAL_DIFFERENCES,
+                   GradientsMethod.CENTRAL_DIFFERENCES4,
+                   GradientsMethod.AUTODIFF):
+            p1 = params.replace(gradients_method=gm, max_iterations=1)
+            fd_times[f"{gm.value} B={B}"] = min(timed(lambda: solve_batch(
+                model, probs_b, p1, qg[:B]))[1] for _ in range(2))
+    times["fd_iteration_ms"] = fd_times
+    log("options", f"(c) central differences mini_cheetah B={FD_BATCH} "
+                   f"float64 CR, {FD_ITERS} iterations: {fd_ms:.0f} ms "
+                   f"(AUTODIFF {ad_ms:.0f}), launches {launches['fd_partials']}"
+                   f"; q vs the AUTODIFF run {e_fd:.2e} (tol {FD_RTOL:g}); "
+                   f"one iteration (best of 2, host clock): " + ", ".join(
+                       f"{k} {x:.1f} ms" for k, x in fd_times.items()))
+    if not e_fd <= FD_RTOL:
+        raise AssertionError("options: FD solve disagrees with AUTODIFF")
+    del probs, sol_fd, sol_ad, st_fd, st_ad
+
+    # (d) linesearch and (e) dense: no launch; each against its CPU run.
+    cases = (
+        ("d", "armijo mini_cheetah", "mini_cheetah", dict(
+            method=SolverMethod.LINESEARCH,
+            linesearch_method=LinesearchMethod.ARMIJO)),
+        ("d", "backtracking hopper", "hopper", dict(
+            method=SolverMethod.LINESEARCH,
+            linesearch_method=LinesearchMethod.BACKTRACKING)),
+        ("e", "dense_ldlt mini_cheetah", "mini_cheetah", dict(
+            linear_solver=LinearSolverType.DENSE_LDLT)),
+        ("e", "exact_hessian spinner", "spinner", dict(exact_hessian=True)),
+    )
+    for part, tag, name, more in cases:
+        model, _, prob, params, qg = options_inputs(name, "cuda", **more)
+        cr_kernel.launches = 0
+        (sol, stats, _), ms = timed(lambda: solver.solve(
+            model, prob, params, qg[0]))
+        if cr_kernel.launches:
+            raise AssertionError(f"options: {tag} launched the kernel")
+        m_c, _, p_c, pr_c, qg_c = options_inputs(name, "cpu", **more)
+        sol_c, stats_c, _ = solver.solve(m_c, p_c, pr_c, qg_c[0])
+        errs = {"q": rel_err(sol.q.cpu(), sol_c.q),
+                "cost": rel_err(stats.cost.cpu(), stats_c.cost)}
+        key = tag.split()[0]
+        times[f"{key}_iteration_ms"] = ms / params.max_iterations
+        log("options", f"({part}) "
+                       f"{tag} B=1 float64: {params.max_iterations} "
+                       f"iterations in {ms:.0f} ms, launches 0, cost "
+                       + " -> ".join(f"{c:.6e}" for c in
+                                     stats.cost.tolist()) + "; card vs CPU "
+                       + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                       + f" (tol {OPTIONS_RTOL:g})")
+        if not all(e <= OPTIONS_RTOL for e in errs.values()):
+            raise AssertionError(f"options: {tag} disagrees with the CPU")
+
+    # The dense LU solve of a cheetah Hessian against the kernel's.
+    from idto_tpu_torch.optimizer.batched import _prepare_batched
+
+    model, _, prob, params, qg = options_inputs("mini_cheetah", "cuda")
+    prep = _prepare_batched(model, broadcast_problem(prob, 1), params, qg,
+                            torch.ones_like(qg))
+    H, g = prep.H, prep.g_merit[:, None]
+    Hd = penta.to_dense(H)
+    x_lu = solver._lin_solve_many(solver._dense_factorize(Hd), g)
+    x_cr = cr_kernel.solve_many(H, g)
+    e_lu = rel_err(x_cr, x_lu)
+    lu_ms = cuda_time_ms(lambda: solver._lin_solve_many(
+        solver._dense_factorize(Hd), g), REPS * 2)
+    cr_ms = cuda_time_ms(lambda: cr_kernel.solve_many(H, g), REPS * 2)
+    times["cheetah_hessian_lu_ms"] = lu_ms
+    times["cheetah_hessian_cr_ms"] = cr_ms
+    log("options", f"(e) a scaled cheetah Hessian (399 x 399, B=1): dense LU "
+                   f"factor + solve {lu_ms:.3f} ms, kernel (solve_many) "
+                   f"{cr_ms:.3f} ms, median of {REPS * 2}; kernel vs LU "
+                   f"{e_lu:.2e} (tol {CR_VS_DENSE_TOL:g})")
+    if not e_lu <= CR_VS_DENSE_TOL:
+        raise AssertionError("options: kernel and LU disagree on a Hessian")
+
+    # (f) diagnostics through the kernel.
+    import contextlib
+    import io
+
+    model, _, prob, params, qg = options_inputs(
+        "mini_cheetah", "cuda", verbose=True, debug_compare_against_dense=True,
+        record_iteration_times=True)
+    cr_kernel.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, stats, _ = solver.solve(model, prob, params, qg[0])
+    launches["diagnostics"] = cr_kernel.launches
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    iters = int(stats.num_iters)
+    errs = [float(ln.split(":")[1]) for ln in text.splitlines()
+            if ln.startswith("[debug] sparse vs. dense")]
+    rows = [ln for ln in text.splitlines() if ln[:5].strip().isdigit()]
+    t = stats.time[:iters].cpu().numpy()
+    log("options", f"(f) verbose + debug_compare_against_dense + "
+                   f"record_iteration_times mini_cheetah B=1 CR: {iters} "
+                   f"iterations, {len(rows)} table rows, launches "
+                   f"{launches['diagnostics']}, compare errors "
+                   + " ".join(f"{e:.2e}" for e in errs)
+                   + f" (tol {CR_VS_DENSE_TOL:g}), iteration times "
+                   + " ".join(f"{1e3 * x:.1f}" for x in t) + " ms")
+    if not (len(rows) == iters == len(errs) == launches["diagnostics"]
+            and max(errs) < CR_VS_DENSE_TOL and (t > 0).all()
+            and np.isfinite(t).all()):
+        raise AssertionError("options: diagnostics failed")
+    return launches, times
+
+
 def phase_times(seed, reps):
     """Solve-iteration and kernel times; returns the kernel's numbers at
     the main path's batch for the result line."""
@@ -1186,6 +1578,8 @@ def main(argv=None):
     by_path["fleet"], fleet_ms = phase_fleet(args.seed)
     by_path["closed_loop"], loop_replan_ms, loop_period_ms = \
         phase_closed_loop()
+    options_launches, options_times = phase_options(args.seed)
+    by_path.update(options_launches)
     times = phase_times(args.seed, REPS)
 
     print(smi, flush=True)
@@ -1209,6 +1603,8 @@ def main(argv=None):
         "closed_loop_shapes": loop_shapes,
         "closed_loop_replan_ms": loop_replan_ms,
         "closed_loop_sim_period_ms": loop_period_ms,
+        # The options phase (float64, B=1 unless named).
+        "options_ms": options_times,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

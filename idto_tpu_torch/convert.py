@@ -73,9 +73,7 @@ def problem(p, dtype=torch.float64, device="cuda") -> ProblemDefinition:
 
 
 def solver_params(s) -> SolverParameters:
-    """Enums map by value; the JAX-only switches
-    (``record_iteration_times``, ``debug_compare_against_dense``) have no
-    counterpart and are dropped."""
+    """Every field; enums map by value."""
     return SolverParameters(
         method=SolverMethod(s.method.value),
         linesearch_method=LinesearchMethod(s.linesearch_method.value),
@@ -98,6 +96,8 @@ def solver_params(s) -> SolverParameters:
             **{k: float(getattr(s.contact, k)) for k in _CONTACT}
         ),
         verbose=bool(s.verbose),
+        debug_compare_against_dense=bool(s.debug_compare_against_dense),
+        record_iteration_times=bool(s.record_iteration_times),
         cr_use_pallas=(None if s.cr_use_pallas is None
                        else bool(s.cr_use_pallas)),
     )

@@ -2,6 +2,9 @@
 
 Usage:
     python -m idto_tpu_torch.examples.run spinner [--test] [--mpc] [--verbose]
+        [--stats-csv F] [--contour-csv F] [--lineplot-csv F]
+        [--quadratic-csv F] [--linesearch-csv F] [--print-debug-data]
+        [--profile]
     python -m idto_tpu_torch.examples.run --list
 
 The solve runs on the GPU in float64; ``--device cpu`` is the only way to
@@ -28,6 +31,26 @@ def main(argv=None):
                         help="run closed-loop MPC")
     parser.add_argument("--verbose", action="store_true",
                         help="print the per-iteration table")
+    parser.add_argument("--stats-csv", default=None,
+                        help="write per-iteration stats to this CSV file")
+    parser.add_argument("--contour-csv", default=None,
+                        help="write a 2-D cost-landscape CSV over the "
+                             "first two decision variables")
+    parser.add_argument("--lineplot-csv", default=None,
+                        help="write a 1-D cost sweep along the total solve "
+                             "displacement sol.q - q_guess")
+    parser.add_argument("--quadratic-csv", default=None,
+                        help="write per-iteration quadratic-model data "
+                             "(the reference's quadratic_data.csv)")
+    parser.add_argument("--linesearch-csv", default=None,
+                        help="write the linesearch residual sweep over "
+                             "alpha in [-0.2, 1.2] along the final Newton "
+                             "direction")
+    parser.add_argument("--print-debug-data", action="store_true",
+                        help="print per-iteration Hessian condition "
+                             "numbers")
+    parser.add_argument("--profile", action="store_true",
+                        help="print the host profiler table")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where the tensors live (default: the GPU)")
     args = parser.parse_args(argv)
@@ -72,7 +95,10 @@ def main(argv=None):
             return 1
         return 0
 
-    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+    from idto_tpu_torch.optimizer.solver import solve
+    from idto_tpu_torch.utils.profiler import instrument
+
+    want_csv = args.stats_csv or (cfg.save_solver_stats_csv and not args.test)
 
     def sync():
         if args.device == "cuda":
@@ -81,18 +107,26 @@ def main(argv=None):
     # The first call pays the one-time costs (on the GPU: the kernel's
     # build, the constant tables); the second is the solve time.
     seconds = []
-    for _ in range(2):
+    for scope in ("first solve", "solve"):
         sync()
         t0 = time.perf_counter()
-        sol, stats, _ = solve_batch(model, broadcast_problem(prob, 1), params,
-                                    q_guess[None])
-        sync()
+        with instrument(scope):
+            sol, stats, warm = solve(model, prob, params, q_guess)
+            sync()
         seconds.append(time.perf_counter() - t0)
 
-    def row(x):
-        return x[0].cpu().numpy()
+    if want_csv:
+        # A separate solve with the iteration timer, so that its events do
+        # not touch the timed solve above.
+        with instrument("timed solve for the CSV"):
+            stats = solve(model, prob,
+                          params.replace(record_iteration_times=True),
+                          q_guess)[1]
 
-    iters = int(stats.num_iters[0])
+    def row(x):
+        return x.cpu().numpy()
+
+    iters = int(stats.num_iters)
     costs = row(stats.cost)
     if args.verbose:
         hdr = (f"{'iter':>5} {'cost':>12} {'Delta':>10} {'rho':>10} "
@@ -111,11 +145,61 @@ def main(argv=None):
           f"(first call {seconds[0]:.1f} s)")
     print(f"final q[T]:     {row(sol.q)[-1]}")
     print(f"max |tau|:      {np.abs(row(sol.tau)).max():.4g}")
-    reason = int(stats.convergence_reason[0])
+    reason = int(stats.convergence_reason)
     names = [name for bit, name in
              [(1, "cost_reduction"), (2, "gradient"), (4, "state_change")]
              if reason & bit]
     print(f"convergence:    {'+'.join(names) if names else 'max_iterations'}")
+
+    if want_csv:
+        from idto_tpu_torch.optimizer.stats_io import save_stats_csv
+
+        path = args.stats_csv or "solver_stats.csv"
+        save_stats_csv(stats, path)
+        print(f"stats written to {path}")
+    if args.contour_csv:
+        from idto_tpu_torch.optimizer.stats_io import save_contour_csv
+
+        with instrument("contour"):
+            save_contour_csv(model, prob, params, sol.q, args.contour_csv)
+        print(f"contour data written to {args.contour_csv}")
+    if args.lineplot_csv:
+        from idto_tpu_torch.optimizer.stats_io import save_lineplot_csv
+
+        with instrument("lineplot"):
+            save_lineplot_csv(model, prob, params, q_guess,
+                              sol.q - q_guess, args.lineplot_csv)
+        print(f"lineplot data written to {args.lineplot_csv}")
+    if args.quadratic_csv:
+        from idto_tpu_torch.optimizer.debug_dump import save_quadratic_csv
+
+        with instrument("quadratic"):
+            save_quadratic_csv(model, prob, params, q_guess,
+                               args.quadratic_csv, n_iters=iters)
+        print(f"quadratic-model data written to {args.quadratic_csv}")
+    if args.linesearch_csv:
+        from idto_tpu_torch.optimizer.debug_dump import (
+            save_linesearch_residual_csv,
+        )
+
+        # Along the final Newton direction at the solved iterate.
+        with instrument("linesearch residual"):
+            save_linesearch_residual_csv(model, prob, params, sol.q,
+                                         warm.dqH, args.linesearch_csv)
+        print(f"linesearch residual written to {args.linesearch_csv}")
+    if args.print_debug_data:
+        from idto_tpu_torch.optimizer.debug_dump import (
+            print_condition_numbers,
+            replay_iterations,
+        )
+
+        for r in replay_iterations(model, prob, params, q_guess, iters):
+            print(f"iter {r.k}:")
+            print_condition_numbers(r)
+    if args.profile:
+        from idto_tpu_torch.utils.profiler import table_of_averages
+
+        print(table_of_averages())
     return 0
 
 

@@ -96,6 +96,52 @@ def axis_angle_to_rot(axes, angles):
     return eye + s * K + (1.0 - c) * KK
 
 
+def rot_to_quat(R):
+    """Quaternion (4, ...) with w >= 0 from rotation matrices (3, 3, ...):
+    of the four Shepperd constructions, the one with the largest pivot
+    (the first on ties), selected per instance without host branching."""
+    tr = R[0, 0] + R[1, 1] + R[2, 2]
+
+    def half_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-12)) / 2.0
+
+    qw = half_sqrt(1.0 + tr)
+    qx = half_sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2])
+    qy = half_sqrt(1.0 - R[0, 0] + R[1, 1] - R[2, 2])
+    qz = half_sqrt(1.0 - R[0, 0] - R[1, 1] + R[2, 2])
+    cases = torch.stack([
+        torch.stack([qw, (R[2, 1] - R[1, 2]) / (4 * qw),
+                     (R[0, 2] - R[2, 0]) / (4 * qw),
+                     (R[1, 0] - R[0, 1]) / (4 * qw)]),
+        torch.stack([(R[2, 1] - R[1, 2]) / (4 * qx), qx,
+                     (R[0, 1] + R[1, 0]) / (4 * qx),
+                     (R[0, 2] + R[2, 0]) / (4 * qx)]),
+        torch.stack([(R[0, 2] - R[2, 0]) / (4 * qy),
+                     (R[0, 1] + R[1, 0]) / (4 * qy), qy,
+                     (R[1, 2] + R[2, 1]) / (4 * qy)]),
+        torch.stack([(R[1, 0] - R[0, 1]) / (4 * qz),
+                     (R[0, 2] + R[2, 0]) / (4 * qz),
+                     (R[1, 2] + R[2, 1]) / (4 * qz), qz]),
+    ])  # (case, 4, ...)
+    best = torch.argmax(torch.stack([qw, qx, qy, qz]), dim=0)
+    q = torch.gather(cases, 0, best[None, None].expand((1,) + cases.shape[1:]))[0]
+    w = q[0]
+    return q * torch.sign(torch.where(w == 0, torch.ones_like(w), w))
+
+
+def rpy_to_rot(rpy):
+    """Roll-pitch-yaw (3, ...) -> rotation matrices (3, 3, ...), URDF
+    convention (extrinsic x-y-z): R = Rz(yaw) Ry(pitch) Rx(roll)."""
+    cr, sr = torch.cos(rpy[0]), torch.sin(rpy[0])
+    cp, sp = torch.cos(rpy[1]), torch.sin(rpy[1])
+    cy, sy = torch.cos(rpy[2]), torch.sin(rpy[2])
+    return _stack2([
+        [cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+        [sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+        [-sp, cp * sr, cp * cr],
+    ])
+
+
 def rpy_to_rot_np(rpy):
     """URDF roll-pitch-yaw (extrinsic x-y-z): R = Rz(yaw) Ry(pitch) Rx(roll)."""
     r, p, y = float(rpy[0]), float(rpy[1]), float(rpy[2])

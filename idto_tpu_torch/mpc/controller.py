@@ -14,8 +14,9 @@ The port has one solver, the batch-native one, so every tensor here leads
 with a scenario axis B (B robots replanned together; B = 1 for one), and
 ``prob`` is a problem whose tensors lead with B
 (``parallel.batching.broadcast_problem``).  ``mpc.runner.run_mpc`` closes
-the loop around it with ``mpc.simulator``; the velocity-command step is not
-ported yet.
+the loop around it with ``mpc.simulator``.  ``mpc_step_velocity_command``
+replans from a commanded body velocity instead of a fixed nominal (the
+joystick-driven cheetah; ``examples/velocity_command.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,9 @@ from idto_tpu_torch.models.rotations import (
     normalize_quat,
     quat_conj,
     quat_mul,
+    quat_to_rot,
+    rot_to_quat,
+    rpy_to_rot,
 )
 from idto_tpu_torch.mpc.trajectory_store import StoredTrajectory
 from idto_tpu_torch.optimizer.batched import solve_trust_region_batched
@@ -103,6 +107,69 @@ def shift_nominal(model: Model, q_nom, q0, q_nom_relative):
     return out
 
 
+def velocity_command_nominal(model: Model, prob: ProblemDefinition, q0,
+                             command):
+    """Velocity-command (joystick) nominal trajectories of a floating-base
+    robot: the commanded body-frame (vx, vy) and yaw rate wz integrated from
+    each current base pose.  q0 (B, nq); command (B, 3) or (3,), a tensor,
+    so a new command costs no host read.  Returns (q_nom (B, T+1, nq),
+    v_nom (B, T+1, nv)); the other DoFs keep prob's nominal.
+
+    Velocity layout: the commanded linear velocity goes to v[base+3:base+5]
+    and the yaw rate to v[base+2] (world angular z), as in the JAX package;
+    the reference's python demo writes indices 4 and 3 of v, one slot high
+    for both, against the floating joint's [w(3), v(3)] layout."""
+    floats = [
+        j for j in range(model.num_joints)
+        if JointType(model.joint_types[j]) == JointType.FLOATING
+    ]
+    if not floats:
+        raise ValueError("velocity_command_nominal needs a floating base")
+    j = floats[0]
+    qs, vs = model.q_starts[j], model.v_starts[j]
+    T = prob.num_steps
+    B = q0.shape[0]
+    dtype, device = q0.dtype, q0.device
+    cmd = torch.as_tensor(command, dtype=dtype, device=device).expand(B, 3)
+    vx, vy, wz = cmd[:, 0], cmd[:, 1], cmd[:, 2]
+
+    quat0 = normalize_quat(q0[:, qs : qs + 4].T)  # (4, B)
+    R = quat_to_rot(quat0)  # (3, 3, B)
+    v_world = R[:, 0] * vx + R[:, 1] * vy  # (3, B): R [vx, vy, 0]
+    yaw0 = torch.atan2(R[1, 0], R[0, 0])
+
+    ts = torch.arange(T + 1, dtype=dtype, device=device) * prob.dt
+    x_nom = q0[:, qs + 4, None] + v_world[0][:, None] * ts
+    y_nom = q0[:, qs + 5, None] + v_world[1][:, None] * ts
+    yaw = yaw0[:, None] + wz[:, None] * ts  # (B, T+1)
+    zero = torch.zeros_like(yaw)
+    quats = rot_to_quat(rpy_to_rot(torch.stack([zero, zero, yaw])))
+    # Shortest path relative to the current attitude.
+    sign = torch.where(
+        torch.einsum("ibt,ib->bt", quats, quat0) < 0, -1.0, 1.0)
+    quats = (quats * sign).permute(1, 2, 0)  # (B, T+1, 4)
+
+    q_nom = prob.q_nom.to(dtype).expand(B, T + 1, model.nq)
+    q_nom = torch.cat([q_nom[..., :qs], quats, x_nom[..., None],
+                       y_nom[..., None], q_nom[..., qs + 6 :]], dim=-1)
+    v_nom = prob.v_nom.to(dtype).expand(B, T + 1, model.nv)
+    cols = torch.stack([wz[:, None].expand(B, T + 1),
+                        v_world[0][:, None].expand(B, T + 1),
+                        v_world[1][:, None].expand(B, T + 1)], dim=-1)
+    v_nom = torch.cat([v_nom[..., : vs + 2], cols, v_nom[..., vs + 5 :]],
+                      dim=-1)
+    return q_nom, v_nom
+
+
+def _warm_guess(carry, q0, prob, t_now):
+    """The stored spline resampled at shifted times, q_guess[0] = q0."""
+    T = prob.num_steps
+    times = t_now + torch.arange(T + 1, dtype=q0.dtype,
+                                 device=q0.device) * prob.dt
+    q_guess = carry.stored.sample_state(times)[0]
+    return torch.cat([q0[:, None], q_guess[:, 1:]], dim=1)
+
+
 def mpc_step(
     model: Model,
     prob: ProblemDefinition,
@@ -112,16 +179,12 @@ def mpc_step(
     x0,  # (B, nq + nv) current state estimates
     t_now: float,
 ) -> tuple[MpcCarry, Solution]:
-    T = prob.num_steps
     nq = model.nq
     q0 = x0[:, :nq]
     v0 = x0[:, nq:]
 
     # 1. Warm-start guess: resample the stored spline at shifted times.
-    times = t_now + torch.arange(T + 1, dtype=x0.dtype,
-                                 device=x0.device) * prob.dt
-    q_guess = carry.stored.sample_state(times)[0]
-    q_guess = torch.cat([q0[:, None], q_guess[:, 1:]], dim=1)
+    q_guess = _warm_guess(carry, q0, prob, t_now)
 
     # 2. Shift the nominal trajectory for relative DoFs.
     q_nom_new = shift_nominal(model, carry.q_nom, q0, q_nom_relative)
@@ -133,5 +196,31 @@ def mpc_step(
     )
 
     # 4. Store the solution spline.
+    stored = StoredTrajectory.from_solution(model, sol, t_now, prob.dt)
+    return MpcCarry(stored=stored, Delta=warm.Delta, q_nom=q_nom_new), sol
+
+
+def mpc_step_velocity_command(
+    model: Model,
+    prob: ProblemDefinition,
+    mpc_params: SolverParameters,
+    carry: MpcCarry,
+    x0,  # (B, nq + nv) current state estimates
+    t_now: float,
+    command,  # (B, 3) or (3,) commanded (vx, vy, wz), a tensor
+) -> tuple[MpcCarry, Solution]:
+    """``mpc_step`` with the nominal from a body-frame velocity command
+    (``velocity_command_nominal``) in place of the shifted fixed nominal."""
+    nq = model.nq
+    q0 = x0[:, :nq]
+    v0 = x0[:, nq:]
+    q_guess = _warm_guess(carry, q0, prob, t_now)
+    q_nom_new, v_nom_new = velocity_command_nominal(model, prob, q0, command)
+    prob_now = prob.replace(
+        q_init=q0, v_init=v0, q_nom=q_nom_new, v_nom=v_nom_new
+    )
+    sol, _, warm = solve_trust_region_batched(
+        model, prob_now, mpc_params, q_guess, Delta0=carry.Delta
+    )
     stored = StoredTrajectory.from_solution(model, sol, t_now, prob.dt)
     return MpcCarry(stored=stored, Delta=warm.Delta, q_nom=q_nom_new), sol

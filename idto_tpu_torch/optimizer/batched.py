@@ -10,7 +10,11 @@ JAX applies to a vmapped while_loop.
 
 The loop is a Python ``while``: its ``any(active)`` test reads one flag
 from the device per iteration (a host sync).  The degraded-solve rescue
-branches on the host too.
+branches on the host too.  Every solver option of the JAX package is
+honoured: finite-difference partials, the dense and exact-Hessian solves,
+the dense cross-check, the verbose table and the iteration timer (the last
+two for one scenario, as in the JAX package); the linesearch method is
+``optimizer/linesearch.py``.
 """
 from __future__ import annotations
 
@@ -18,10 +22,10 @@ import torch
 
 from idto_tpu_torch.models.model import Model
 from idto_tpu_torch.ops import penta
+from idto_tpu_torch.optimizer import itimer
+from idto_tpu_torch.optimizer.partials import id_partials_for, nplus_stack
 from idto_tpu_torch.optimizer.problem import (
-    GradientsMethod,
     ProblemDefinition,
-    SolverMethod,
     SolverParameters,
 )
 from idto_tpu_torch.optimizer.solver import (
@@ -34,26 +38,33 @@ from idto_tpu_torch.optimizer.solver import (
     _bnorm,
     _bsum,
     _dogleg,
+    _lin_matvec,
     _LoopState,
     _newton_tail,
     _prepare_from_physics,
+    _print_iter_row,
     _use_cr,
 )
 from idto_tpu_torch.soa import contact as soa_contact
-from idto_tpu_torch.soa import partials as soa_partials
 from idto_tpu_torch.soa import rollout
 from idto_tpu_torch.soa.kinematics import normalize_quaternions
 from idto_tpu_torch.utils.consts import index
 
 
-def can_solve_batched_native(model: Model, params: SolverParameters) -> bool:
-    """The configuration is covered by the port's batch-native solve."""
-    return (
-        soa_contact.supports_soa(model)
-        and params.method == SolverMethod.TRUST_REGION
-        and params.gradients_method == GradientsMethod.AUTODIFF
-        and not params.verbose
-    )
+def check_supported(model: Model, params: SolverParameters, B: int):
+    """Raise for what the port does not solve: a model with a contact pair
+    that has no SoA kernel, or a per-iteration host printer or timer over several
+    scenarios (one table or one clock for a batch has no meaning; the JAX
+    package's are single-scenario too)."""
+    if not soa_contact.supports_soa(model):
+        raise NotImplementedError(
+            "a contact pair of this model has no SoA kernel in the port"
+        )
+    if B > 1 and (params.verbose or params.record_iteration_times):
+        raise ValueError(
+            "verbose and record_iteration_times are single-scenario "
+            f"options; this solve has {B} scenarios"
+        )
 
 
 def _mask(active, new, old):
@@ -96,8 +107,8 @@ def _prepare_batched(model, probs, params, qs, D_prev):
     contact = params.contact
     tau, v = rollout.generalized_forces(model, probs, contact, qs)
     cost = rollout.cost(model, probs, contact, qs, tau=tau, v=v)
-    parts = soa_partials.id_partials_batched(model, probs, contact, qs)
-    nplus = soa_partials.nplus_stack_batched(model, qs)
+    parts = id_partials_for(model, probs, params, qs)
+    nplus = nplus_stack(model, qs)
     return _prepare_from_physics(
         model, probs, params, qs, D_prev, cost, v, tau, parts, nplus
     )
@@ -159,11 +170,8 @@ def solve_trust_region_batched(
     """Batched trust-region solve: ``probs`` tensors lead with the scenario
     axis (or are shared), q_guesses is (B, T+1, nq).  Returns batched
     (Solution, Stats, WarmStart)."""
-    if not can_solve_batched_native(model, params):
-        raise NotImplementedError(
-            "configuration not covered by the port's batch-native solve"
-        )
     B = q_guesses.shape[0]
+    check_supported(model, params, B)
     dtype, device = q_guesses.dtype, q_guesses.device
     K = params.max_iterations
     Delta = torch.as_tensor(
@@ -186,7 +194,7 @@ def solve_trust_region_batched(
         merit_try, cost_try = _merit_at_batched(
             model, probs, params, q_try, prep.lam
         )
-        Hdq = penta.matvec(prep.H, dq_scaled)
+        Hdq = _lin_matvec(prep.H, dq_scaled)
         predicted = -_bsum(prep.g_merit * dq_scaled) - 0.5 * _bsum(
             dq_scaled * Hdq
         )
@@ -222,6 +230,12 @@ def solve_trust_region_batched(
             h_norm=put(st.h_norm, _bnorm(prep.h)),
             merit=put(st.merit, prep.merit),
         )
+        if params.record_iteration_times:
+            itimer.mark()
+        if params.verbose:  # one scenario (check_supported); host reads
+            _print_iter_row(s.k[0], prep.cost[0], prep.merit[0], s.Delta[0],
+                            rho[0], dq_norm[0], _bnorm(prep.g_merit)[0],
+                            _bnorm(prep.h)[0])
 
         # ---- convergence (accepted steps only) ----
         reason = torch.zeros_like(s.reason)
@@ -289,6 +303,8 @@ def solve_trust_region_batched(
         dqH_last=torch.zeros_like(q_guesses),
         stats=_empty_stats(B, K, dtype, device),
     )
+    if params.record_iteration_times:
+        itimer.reset(device)
     while True:
         active = (s.k < K) & ~s.done
         if not bool(torch.any(active)):  # host sync once per iteration
@@ -312,6 +328,8 @@ def solve_trust_region_batched(
     stats = s.stats.replace(
         num_iters=s.k, solver_flag=flag, convergence_reason=s.reason
     )
+    if params.record_iteration_times:
+        stats = itimer.attach(stats)
     return (
         Solution(q=s.q, v=v, tau=tau),
         stats,

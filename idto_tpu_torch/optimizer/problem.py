@@ -99,6 +99,10 @@ class SolverParameters:
     )
     contact: ContactParams = dataclasses.field(default_factory=ContactParams)
     verbose: bool = False
+    # Re-solve every Newton step densely and print the relative difference
+    # from the banded solve.  Debug only: densifies the Hessian each
+    # iteration.
+    debug_compare_against_dense: bool = False
     # Route of CYCLIC_REDUCTION.  None: the fused kernel (one launch per
     # solve, ops/cr_kernel.py).  False: level-wise cyclic reduction
     # (ops/cyclic_reduction.py), one factorization reused by every solve of
@@ -106,6 +110,9 @@ class SolverParameters:
     # super-rows, beyond that the hybrid: level-wise down to 64 rows, then
     # the kernel on the tail.
     cr_use_pallas: Optional[bool] = None
+    # Time each iteration into Stats.time (optimizer/itimer.py).  One
+    # scenario only, as the verbose table.
+    record_iteration_times: bool = False
 
     def replace(self, **updates):
         return dataclasses.replace(self, **updates)

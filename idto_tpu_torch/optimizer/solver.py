@@ -1,21 +1,25 @@
 """Gauss-Newton trust-region step: results, statistics, the linear-algebra
-tail of one iteration and the dogleg (counterpart of
-``idto_tpu/optimizer/solver.py``).
+tail of one iteration, the dogleg, the verbose table and the single-problem
+``solve`` (counterpart of ``idto_tpu/optimizer/solver.py``).
 
 The port runs batch-native only: every function here takes a leading
 scenario axis B and works per scenario.  The loop itself is
-``optimizer/batched.py``.  Equality constraints (zero generalized force on
-the unactuated DoFs) are solved as in the JAX package: the multipliers come
+``optimizer/batched.py``; ``solve`` and ``solve_from_warm_start`` are B=1
+calls of it.  Equality constraints (zero generalized force on the
+unactuated DoFs) are solved as in the JAX package: the multipliers come
 from the Schur complement J~ H~^-1 J~^T, whose n_h + 1 solves with H~ are
-one call of the linear solver.  The dense and exact Hessian paths and the
-linesearch solver are not ported yet.
+one call of the linear solver.  ``DENSE_LDLT`` and ``exact_hessian`` route
+the linear algebra through a dense partial-pivot LU (a library call, as in
+the JAX package, which computes it outside any Pallas kernel).
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Any, NamedTuple
 
 import torch
+from torch.func import grad, jvp, vmap
 
 from idto_tpu_torch.ops import cr_kernel, cyclic_reduction, penta
 from idto_tpu_torch.optimizer.hessian import (
@@ -27,6 +31,7 @@ from idto_tpu_torch.optimizer.problem import (
     ScalingMethod,
     SolverParameters,
 )
+from idto_tpu_torch.soa import rollout
 from idto_tpu_torch.utils.consts import index
 from idto_tpu_torch.utils.structs import tensor_dataclass
 
@@ -95,7 +100,7 @@ class _Prepared(NamedTuple):
     merit: Any
     D: Any  # (B, T+1, nq) scale factors
     g_merit: Any  # scaled merit gradient
-    H: Any  # PentaBands, scaled
+    H: Any  # PentaBands, scaled; (B, n, n) on the dense path
     factor: Any  # what _lin_solve takes for H
     p_newton: Any  # -H~^{-1} g~ (scaled coordinates)
     p_cauchy: Any  # -(g~^T g~ / g~^T H~ g~) g~
@@ -161,12 +166,33 @@ def _scale_factors_from_diag(diag, method: ScalingMethod, D_prev):
     return torch.clamp_max(d, 1.0)
 
 
+def _use_dense(params: SolverParameters) -> bool:
+    """The linear algebra goes through a dense factorization: DENSE_LDLT,
+    or the exact Hessian, which is not penta-diagonal."""
+    return params.exact_hessian or (
+        params.linear_solver == LinearSolverType.DENSE_LDLT
+    )
+
+
 def _use_cr(params: SolverParameters) -> bool:
-    if params.linear_solver == LinearSolverType.CYCLIC_REDUCTION:
-        return True
-    if params.linear_solver == LinearSolverType.PENTA_LU:
-        return False
-    raise NotImplementedError(f"linear solver {params.linear_solver}")
+    return (not _use_dense(params)) and (
+        params.linear_solver == LinearSolverType.CYCLIC_REDUCTION
+    )
+
+
+class DenseFactor(NamedTuple):
+    """Partial-pivot LU of a batch of dense (B, n, n) matrices: not
+    Cholesky, since the exact Hessian can be indefinite away from a
+    minimum.  A singular matrix gives finite factors with a zero pivot and
+    an inf/nan step, which the step's finiteness check reports."""
+
+    LU: Any
+    pivots: Any
+
+
+def _dense_factorize(Hd) -> DenseFactor:
+    LU, pivots, _ = torch.linalg.lu_factor_ex(Hd, check_errors=False)
+    return DenseFactor(LU, pivots)
 
 
 # Packed super-rows (counted as the next power of two) up to which
@@ -203,8 +229,14 @@ def _sparse_factorize(params, Hs):
 
 def _lin_solve_many(factor, rhs_stack):
     """Solve H X = rhs for a stack (B, R, n, k) of right-hand sides with
-    the factor of ``_sparse_factorize``: one launch of the fused kernel for
-    all R columns, or one application of the stored factorization."""
+    the factor of ``_sparse_factorize`` or ``_dense_factorize``: one launch
+    of the fused kernel for all R columns, or one application of the
+    stored factorization."""
+    if isinstance(factor, DenseFactor):
+        B, R = rhs_stack.shape[:2]
+        b = rhs_stack.reshape(B, R, -1).transpose(1, 2)
+        x = torch.linalg.lu_solve(factor.LU, factor.pivots, b)
+        return x.transpose(1, 2).reshape(rhs_stack.shape)
     if isinstance(factor, penta.PentaBands):
         return cr_kernel.solve_many(factor, rhs_stack)
     if isinstance(factor, cyclic_reduction.CRFactorization):
@@ -215,6 +247,37 @@ def _lin_solve_many(factor, rhs_stack):
 def _lin_solve(factor, rhs):
     """Solve H x = rhs, rhs (B, n, k)."""
     return _lin_solve_many(factor, rhs[:, None])[:, 0]
+
+
+def _lin_matvec(H, x):
+    """H x per scenario, x (B, n, k); H bands or dense (B, n*k, n*k)."""
+    if isinstance(H, torch.Tensor):
+        return (H @ x.reshape(x.shape[0], -1, 1)).reshape(x.shape)
+    return penta.matvec(H, x)
+
+
+def _exact_hessian_dense(model, prob, params, q):
+    """Exact Hessian of the cost, dense (B, n, n), with the q_0 block
+    pinned to the identity: forward mode over the reverse-mode gradient of
+    the SoA cost, one tangent per decision variable, all scenarios at
+    once (their costs are independent, so a tangent that moves every
+    scenario's variable j gives each scenario's column j)."""
+    B, Tp1, nq = q.shape
+    n = Tp1 * nq
+    contact = params.contact
+
+    def g(qf):
+        return grad(lambda x: torch.sum(rollout.cost(
+            model, prob, contact, x.reshape(B, Tp1, nq))))(qf)
+
+    qf = q.reshape(B, n)
+    eye = torch.eye(n, dtype=q.dtype, device=q.device)
+    cols = vmap(lambda e: jvp(g, (qf,), (e.expand(B, n),))[1])(eye)
+    Hd = cols.permute(1, 2, 0).clone()  # Hd[b, i, j] = d g_i / d q_j
+    Hd[:, :nq, :] = 0.0
+    Hd[:, :, :nq] = 0.0
+    Hd[:, :nq, :nq] = torch.eye(nq, dtype=q.dtype, device=q.device)
+    return Hd
 
 
 def _constraint_jacobian_dense(model, prob, parts, unact):
@@ -236,10 +299,12 @@ def _constraint_jacobian_dense(model, prob, parts, unact):
     return J.reshape(-1, T * n_un, T + 1, nq)
 
 
-def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok) -> _Prepared:
+def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok,
+                 compare_dense=False) -> _Prepared:
     """From the scaled system and a factor of it: the multipliers and the
     merit (with constraints), the Newton step with its per-scenario
-    containment, and the Cauchy step."""
+    containment, and the Cauchy step.  ``compare_dense`` re-solves the
+    step densely and prints the relative difference, a line a scenario."""
     dtype = gs.dtype
     if Js is not None:
         # Lagrange multipliers: (J~ H~^-1 J~^T) lam = h - J~ H~^-1 g~.  All
@@ -259,7 +324,16 @@ def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok) -> _Prepared:
         merit = cost
 
     p_newton = -_lin_solve(factor, g_merit)
-    Hg = penta.matvec(Hs, g_merit)
+    if compare_dense:
+        Hd = penta.to_dense(Hs)
+        x_dense = torch.linalg.solve(
+            Hd, -g_merit.reshape(g_merit.shape[0], -1, 1)
+        ).reshape(g_merit.shape)
+        err = _bnorm(p_newton - x_dense) / torch.clamp_min(
+            _bnorm(x_dense), torch.finfo(dtype).tiny)
+        for e in err.tolist():  # host read: a debug option
+            print(f"[debug] sparse vs. dense solve relative error: {e:.3e}")
+    Hg = _lin_matvec(Hs, g_merit)
     gg = _bsum(g_merit * g_merit)
     gHg = _bsum(g_merit * Hg)
     p_cauchy = -_bcast(gg / torch.clamp_min(gHg, 1e-300), g_merit) * g_merit
@@ -267,7 +341,7 @@ def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok) -> _Prepared:
     # Per-scenario containment: accept the Newton step only if its residual
     # is small relative to the gradient, else take the (always descent)
     # Cauchy step and report the degradation through solve_ok.
-    res = penta.matvec(Hs, p_newton) + g_merit
+    res = _lin_matvec(Hs, p_newton) + g_merit
     tiny = torch.finfo(dtype).tiny
     rel_res = torch.sqrt(_bsum(res * res)) / torch.sqrt(
         torch.clamp_min(gg, tiny)
@@ -288,12 +362,24 @@ def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok) -> _Prepared:
 def _factor_status(factor, B, device):
     """(B,) the factor's blocks are finite.  A singular block gives inf/nan
     in the Thomas and level-wise factors; the fused cyclic reduction has no
-    separate factor, so only the step's finiteness reports it."""
-    if isinstance(factor, penta.PentaBands):
+    separate factor and the dense LU keeps finite factors, so there only
+    the step's finiteness reports it."""
+    if isinstance(factor, (penta.PentaBands, DenseFactor)):
         return torch.ones(B, dtype=torch.bool, device=device)
     if isinstance(factor, cyclic_reduction.CRFactorization):
         return cyclic_reduction.factorization_status(factor)
     return penta.factorization_status(factor)
+
+
+def _scaled(H, g, params, D_prev, diag):
+    """(D, D H D, D g) with D from the Hessian diagonal, or no scaling."""
+    if not params.scaling:
+        return torch.ones_like(g), H, g
+    D = _scale_factors_from_diag(diag, params.scaling_method, D_prev)
+    if isinstance(H, torch.Tensor):
+        Df = D.reshape(D.shape[0], -1)
+        return D, Df[:, :, None] * H * Df[:, None, :], D * g
+    return D, penta.scale_by_diagonal(H, D), D * g
 
 
 def _prepare_from_physics(
@@ -302,22 +388,22 @@ def _prepare_from_physics(
 ) -> _Prepared:
     """Gradient and Hessian assembly, scaling, factorization, the
     constraint Schur solve, the Newton solve with its per-scenario
-    containment, and the Cauchy step, from already evaluated physics (the
-    banded branch of the JAX package)."""
+    containment, and the Cauchy step, from already evaluated physics."""
     B = q.shape[0]
     g = gradient_from_partials(model, prob, parts, nplus, q, v, tau)
-    H = gauss_newton_hessian(model, prob, parts, nplus)
-    if params.scaling:
-        D = _scale_factors_from_diag(
-            penta.extract_diagonal(H), params.scaling_method, D_prev
-        )
-        Hs = penta.scale_by_diagonal(H, D)
-        gs = D * g
+    if _use_dense(params):
+        # The exact Hessian (testing), or the Gauss-Newton one densified.
+        if params.exact_hessian:
+            H = _exact_hessian_dense(model, prob, params, q)
+        else:
+            H = penta.to_dense(gauss_newton_hessian(model, prob, parts, nplus))
+        diag = torch.diagonal(H, dim1=-2, dim2=-1).reshape(q.shape)
+        D, Hs, gs = _scaled(H, g, params, D_prev, diag)
+        factor = _dense_factorize(Hs)
     else:
-        D = torch.ones_like(g)
-        Hs = H
-        gs = g
-    factor = _sparse_factorize(params, Hs)
+        H = gauss_newton_hessian(model, prob, parts, nplus)
+        D, Hs, gs = _scaled(H, g, params, D_prev, penta.extract_diagonal(H))
+        factor = _sparse_factorize(params, Hs)
 
     unact = model.unactuated_vdofs
     if params.equality_constraints and prob.num_steps * len(unact) > 0:
@@ -327,8 +413,11 @@ def _prepare_from_physics(
     else:
         h = torch.zeros((B, 0), dtype=q.dtype, device=q.device)
         Js = None
-    return _newton_tail(cost, D, Hs, gs, h, Js, factor,
-                        _factor_status(factor, B, q.device))
+    return _newton_tail(
+        cost, D, Hs, gs, h, Js, factor, _factor_status(factor, B, q.device),
+        compare_dense=(params.debug_compare_against_dense
+                       and not _use_dense(params)),
+    )
 
 
 def _dogleg(prep: _Prepared, Delta):
@@ -366,3 +455,56 @@ def _dogleg(prep: _Prepared, Delta):
     )
     boundary_active = first_leg | ~newton_inside
     return dq_scaled, prep.D * dq_scaled, boundary_active
+
+
+def _print_iter_row(k, cost, merit, Delta, rho, dq_norm, g_norm, h_norm):
+    """One row of the verbose table; the header is printed before row 0
+    and every 50 rows."""
+    k = int(k)
+    if k % 50 == 0:
+        print(
+            f"{'iter':>5} | {'cost':>12} | {'merit':>12} | {'Delta':>9} | "
+            f"{'rho':>9} | {'||dq||':>9} | {'||g||':>9} | {'||h||':>9}"
+        )
+        print("-" * 94)
+    print(
+        f"{k:>5} | {float(cost):>12.6g} | {float(merit):>12.6g} | "
+        f"{float(Delta):>9.3g} | {float(rho):>9.3g} | "
+        f"{float(dq_norm):>9.3g} | {float(g_norm):>9.3g} | "
+        f"{float(h_norm):>9.3g}"
+    )
+
+
+def unbatch(x):
+    """The first scenario of a batched Solution, Stats or WarmStart."""
+    return x.replace(**{
+        f.name: getattr(x, f.name)[0] for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)
+    })
+
+
+def solve(model, prob, params, q_guess):
+    """Solve one problem from a fresh trust region (or by linesearch when
+    ``params.method`` says so): prob unbatched, q_guess (T+1, nq).  A B=1
+    call of the batched solve; returns unbatched (Solution, Stats,
+    WarmStart)."""
+    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+
+    out = solve_batch(model, broadcast_problem(prob, 1), params,
+                      q_guess[None])
+    return tuple(unbatch(x) for x in out)
+
+
+def solve_from_warm_start(model, prob, params, warm: WarmStart):
+    """Resume one problem's trust-region solve from ``warm`` (unbatched):
+    its trajectory, whose q_0 must already be the measured state, and its
+    trust radius."""
+    from idto_tpu_torch.optimizer.batched import solve_trust_region_batched
+    from idto_tpu_torch.parallel.batching import broadcast_problem
+
+    out = solve_trust_region_batched(
+        model, broadcast_problem(prob, 1), params, warm.q[None],
+        Delta0=torch.as_tensor(warm.Delta, dtype=warm.q.dtype,
+                               device=warm.q.device).reshape(1),
+    )
+    return tuple(unbatch(x) for x in out)

@@ -271,6 +271,302 @@ def partials_punyo():
           f"{np.abs(np.asarray(dtau_dq)).max():.4g})")
 
 
+# -- goldens that stand in for live JAX calls the port's tests made before:
+# the same inputs, built by the tests' own helpers ----------------------------
+
+
+def _save(name, **arrays):
+    path = os.path.join(_REPO, "goldens", f"torch_{name}.npz")
+    np.savez(path, **arrays)
+    print(f"wrote {path}")
+
+
+def soa_case(name):
+    """tests/test_torch_soa.py's ``case``: kinematics, inverse dynamics,
+    contact wrenches and step_tau of the SoA layer at its random states, and
+    the rollout, cost and exact partials of its trajectories."""
+    from idto_tpu.soa import contact as jcon
+    from idto_tpu.soa import dynamics as jdyn
+    from idto_tpu.soa import kinematics as jkin
+    from idto_tpu.soa import partials as jpart
+    from idto_tpu.soa import rollout as jroll
+    from tests import test_torch_soa as ts
+
+    c = ts._setup(name)
+    jm, jprob, jc = c["jm"], c["jprob"], c["jc"]
+    q, v, a, qn, qs = (jnp.asarray(c[k]) for k in ("q", "v", "a", "qn", "qs"))
+    tq, f = jax.jit(lambda x, y: jcon.contact_wrenches(jm, x, y, jc))(qn, v)
+    parts = jax.jit(
+        lambda x: jpart.id_partials_batched(jm, jprob, jc, x))(qs)
+    kin = {}
+    for tag, outs in (("fk", jkin.forward_kinematics(jm, q)),
+                      ("bv", jkin.body_velocities(jm, q, v))):
+        kin.update({f"{tag}_{i}": np.asarray(x) for i, x in enumerate(outs)})
+    qdot = jkin.v_to_qdot(jm, q, v)
+    roll_tau, roll_v = jax.jit(
+        lambda x: jroll.generalized_forces(jm, jprob, jc, x))(qs)
+    _save(f"soa_{name}", **{k: c[k] for k in ("q", "v", "a", "qn", "qs")},
+          **kin, qdot=np.asarray(qdot),
+          v_back=np.asarray(jkin.qdot_to_v(jm, q, qdot)),
+          nplus=np.asarray(jkin.nplus_matrix(jm, q)),
+          roll_tau=np.asarray(roll_tau), roll_v=np.asarray(roll_v),
+          cost=np.asarray(jax.jit(
+              lambda x: jroll.cost(jm, jprob, jc, x))(qs)),
+          tau=np.asarray(jax.jit(
+              lambda x, y, z: jdyn.inverse_dynamics(jm, x, y, z))(q, v, a)),
+          torques=np.asarray(tq), forces=np.asarray(f),
+          step_tau=np.asarray(jax.jit(
+              lambda x, y, z: jcon.step_tau(jm, jc, x, y, z))(qn, v, a)),
+          dtau_dqm=np.asarray(parts[0]), dtau_dqt=np.asarray(parts[1]),
+          dtau_dqp=np.asarray(parts[2]))
+
+
+def aos_punyo():
+    """tests/test_torch_soa.py's ``punyo`` states: the AoS contact wrenches
+    and step_tau."""
+    from idto_tpu.contact.force import contact_wrenches
+    from idto_tpu.optimizer.trajectory import step_tau
+    from tests import test_torch_soa as ts
+
+    c = ts._punyo_inputs()
+    jm, jc = c["jm"], c["jc"]
+    q, v, a = (jnp.asarray(c[k].T) for k in ("q", "v", "a"))
+    tq, f = jax.jit(jax.vmap(lambda x, y: contact_wrenches(jm, x, y, jc)))(
+        q, v)
+    tau = jax.jit(jax.vmap(lambda x, y, z: step_tau(jm, jc, x, y, z)))(
+        q, v, a)
+    _save("aos_punyo", q=c["q"], v=c["v"], a=c["a"], torques=np.asarray(tq),
+          forces=np.asarray(f), tau=np.asarray(tau))
+
+
+def dynamics(name):
+    """tests/test_torch_closed_loop.py's ``dyn_case`` states: M, h with
+    contact, forward dynamics and one simulator step."""
+    from idto_tpu.contact.force import contact_wrenches
+    from idto_tpu.models import dynamics as dyn
+    from idto_tpu.mpc.simulator import sim_step
+    from tests import test_torch_closed_loop as tc
+
+    model, _, prob, params, _ = load_example(name)
+    q, v, u = tc._states(model, prob, np.random.default_rng(5), tc.N_STATES)
+    h = tc.SIM_H
+
+    def one(qq, vv, uu):
+        wrenches = contact_wrenches(model, qq, vv, params.contact)
+        return (dyn.mass_matrix(model, qq),
+                dyn.bias_forces(model, qq, vv, wrenches),
+                dyn.forward_dynamics(model, qq, vv, model.B @ uu, wrenches),
+                sim_step(model, params.contact, h, qq, vv, uu))
+
+    M, bias, a, (q_new, v_new) = jax.jit(jax.vmap(one))(
+        jnp.asarray(q), jnp.asarray(v), jnp.asarray(u))
+    _save(f"dynamics_{name}", h=h, q=q, v=v, u=u, M=np.asarray(M),
+          bias=np.asarray(bias), a=np.asarray(a), q_new=np.asarray(q_new),
+          v_new=np.asarray(v_new))
+
+
+def segment(name):
+    """tests/test_torch_closed_loop.py's simulated segment: six substeps
+    from a stored random solution, at seeded gains and state."""
+    from idto_tpu.mpc.simulator import simulate_segment
+    from idto_tpu.mpc.trajectory_store import StoredTrajectory
+    from idto_tpu.optimizer.solver import Solution
+    from tests import test_torch_closed_loop as tc
+
+    model, _, prob, params, _ = load_example(name)
+    inputs = tc._segment_inputs(model, prob)
+    stored = StoredTrajectory.from_solution(
+        model, Solution(q=jnp.asarray(inputs["q"]),
+                        v=jnp.asarray(inputs["v"]),
+                        tau=jnp.asarray(inputs["tau"])),
+        tc.SEGMENT["t_store"], prob.dt)
+    q, v, log = jax.jit(lambda s, a, b: simulate_segment(
+        model, params.contact, tc.SIM_H, tc.SEGMENT["substeps"], s,
+        jnp.asarray(inputs["Kp"]), jnp.asarray(inputs["Kd"]), a, b,
+        jnp.asarray(tc.SEGMENT["t_start"])))(
+        stored, jnp.asarray(inputs["q0"][0]), jnp.asarray(inputs["v0"][0]))
+    _save(f"segment_{name}", **inputs, q_end=np.asarray(q),
+          v_end=np.asarray(v), log_q=np.asarray(log[0]),
+          log_v=np.asarray(log[1]), log_u=np.asarray(log[2]))
+
+
+def closed_loop_pendulum():
+    """tests/test_torch_closed_loop.py's pendulum loop: three replans, the
+    initial solve cut to three iterations, gains put in."""
+    from idto_tpu.mpc.runner import run_mpc
+    from tests import test_torch_closed_loop as tc
+
+    replans, init_iters = 3, 3
+    model, cfg, prob, params, q_guess = load_example("pendulum")
+    res = run_mpc(model, tc._short(cfg, replans, **tc.PENDULUM_GAINS), prob,
+                  params.replace(max_iterations=init_iters), q_guess)
+    _save("closed_loop_pendulum", init_iters=init_iters, replans=replans,
+          num_solves=res.num_solves, times=res.times, q_log=res.q_log,
+          v_log=res.v_log, u_log=res.u_log)
+
+
+def mpc_step_from_carry(name):
+    """tests/test_torch_mpc.py's replan from a seeded carry: the carry, the
+    state estimate, and what ``mpc_step`` makes of them."""
+    from idto_tpu.mpc import controller as jmpc
+    from tests import test_torch_mpc as tm
+
+    model, cfg, prob, params, _ = load_example(name)
+    rel = tm._relative_mask(cfg, model)
+    rng = np.random.default_rng(7)
+    carry = tm._jax_carry(model, prob, rng)
+    x0 = tm._state_estimate(model, prob, rng)
+    new, sol = jax.jit(lambda c, x, t: jmpc.mpc_step(
+        model, prob, jmpc.make_mpc_params(params, 1), rel, c, x, t))(
+        carry, jnp.asarray(x0), jnp.asarray(tm.T_NOW))
+    out = {"x0": x0, "q": sol.q, "v": sol.v, "tau": sol.tau,
+           "Delta": new.Delta, "q_nom": new.q_nom}
+    for tag, c in (("in", carry), ("out", new)):
+        out[f"{tag}_start_time"] = c.stored.start_time
+        out[f"{tag}_Delta"] = c.Delta
+        out[f"{tag}_q_nom"] = c.q_nom
+        for part in ("q", "v", "u"):
+            spline = getattr(c.stored, part)
+            out[f"{tag}_{part}_dt"] = spline.dt
+            out[f"{tag}_{part}_y"] = spline.y
+            out[f"{tag}_{part}_M"] = spline.M
+    _save(f"mpc_step_{name}", **{k: np.asarray(x) for k, x in out.items()})
+
+
+def slice_pendulum():
+    """tests/test_torch_slice.py's pendulum batch: ``solve_batch`` with the
+    fused Pallas kernel forced on (interpret mode on the CPU)."""
+    from tests import test_torch_slice as tsl
+
+    model, _, prob, params, q_guess = load_example("pendulum")
+    params = params.replace(
+        max_iterations=tsl.PENDULUM_ITERS, verbose=False,
+        record_iteration_times=False,
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION, cr_use_pallas=True)
+    qg = tsl._pendulum_guesses(prob, q_guess)
+    sol, stats, _ = jax.jit(
+        lambda p, q: solve_batch(model, p, params, q, native=True)
+    )(broadcast_problem(prob, qg.shape[0]), jnp.asarray(qg))
+    _save("slice_pendulum", q_guess=qg, q=np.asarray(sol.q),
+          tau=np.asarray(sol.tau),
+          **{k: np.asarray(getattr(stats, k)) for k in (
+              "num_iters", "solver_flag", "cost", "rho")})
+
+
+# -- goldens of the solver options, the object API and the velocity
+# command (tests/test_torch_{options,linesearch,api,velocity_command}.py) ---
+
+_STATS = ("num_iters", "solver_flag", "cost", "rho", "delta", "q_norm",
+          "dq_norm", "dqH_norm", "grad_norm", "dL_dq", "h_norm", "merit",
+          "alpha", "ls_iters")
+
+
+def _solved(prefix, sol, stats, warm):
+    """Arrays of a single-problem (Solution, Stats, WarmStart)."""
+    out = {f"{prefix}q": sol.q, f"{prefix}tau": sol.tau,
+           f"{prefix}warm_q": warm.q, f"{prefix}warm_Delta": warm.Delta,
+           f"{prefix}warm_dq": warm.dq, f"{prefix}warm_dqH": warm.dqH}
+    out.update({f"{prefix}{k}": getattr(stats, k) for k in _STATS})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def fd_partials():
+    """``id_partials_fd`` of orders 1, 2 and 4 on the spinner at T=4 (the
+    test's seeded trajectory)."""
+    from idto_tpu.optimizer.partials import id_partials_fd
+    from tests import test_torch_options as to
+
+    model, _, prob, params, q_guess = load_example("spinner")
+    prob, q = to._short_spinner(prob, q_guess)
+    out = {"q": q}
+    for order in (1, 2, 4):
+        parts = jax.jit(lambda x: id_partials_fd(
+            model, prob, params.contact, x, order=order))(jnp.asarray(q))
+        for name, x in zip(("dqm", "dqt", "dqp"), parts):
+            out[f"order{order}_{name}"] = np.asarray(x)
+    _save("fd_spinner", **out)
+
+
+def dense_pendulum():
+    """The pendulum's trust-region solve through the dense LU, with the
+    Gauss-Newton and with the exact Hessian."""
+    from idto_tpu.optimizer.problem import LinearSolverType as L
+    from idto_tpu.optimizer.solver import solve_trust_region
+    from tests import test_torch_options as to
+
+    model, _, prob, params, q_guess = load_example("pendulum")
+    out = {}
+    for tag, more in (("dense_", dict(linear_solver=L.DENSE_LDLT)),
+                      ("exact_", dict(exact_hessian=True))):
+        p = params.replace(max_iterations=to.DENSE_ITERS, **more)
+        out.update(_solved(tag, *jax.jit(
+            lambda q: solve_trust_region(model, prob, p, q))(q_guess)))
+    _save("dense_pendulum", **out)
+
+
+def linesearch(name):
+    """``solve_linesearch``: Armijo on the pendulum, backtracking with the
+    exact-l1 merit on the hopper (equality constraints)."""
+    from idto_tpu.optimizer.linesearch import solve_linesearch
+    from idto_tpu.optimizer.problem import LinesearchMethod, SolverMethod
+    from tests import test_torch_linesearch as tl
+
+    model, _, prob, params, q_guess = load_example(name)
+    method, iters = tl.CASES[name]
+    p = params.replace(method=SolverMethod.LINESEARCH,
+                       linesearch_method=LinesearchMethod(method),
+                       max_iterations=iters)
+    _save(f"linesearch_{name}", **_solved("", *jax.jit(
+        lambda q: solve_linesearch(model, prob, p, q))(q_guess)))
+
+
+def api_pendulum():
+    """``TrajectoryOptimizer.Solve`` and ``SolveFromWarmStart`` from the
+    same guess, and the warm start after it."""
+    from idto_tpu.api import TrajectoryOptimizer
+    from tests import test_torch_api as ta
+
+    model, _, prob, params, q_guess = load_example("pendulum")
+    opt = TrajectoryOptimizer(model, prob,
+                              params.replace(max_iterations=ta.ITERS))
+    sol, stats = opt.Solve(q_guess)
+    ws = opt.CreateWarmStart(q_guess)
+    sol_w, stats_w = opt.SolveFromWarmStart(ws)
+    _save("api_pendulum", q=np.asarray(sol.q), cost=np.asarray(stats.cost),
+          warm_solve_q=np.asarray(sol_w.q),
+          warm_solve_cost=np.asarray(stats_w.cost), ws_q=np.asarray(ws.q),
+          ws_Delta=np.asarray(ws.Delta), ws_dq=np.asarray(ws.dq),
+          ws_dqH=np.asarray(ws.dqH))
+
+
+def velocity_cheetah():
+    """mini_cheetah: ``mpc_initialize`` with one iteration, then two
+    velocity-command replans whose command changes between them."""
+    from idto_tpu.mpc.controller import (
+        make_mpc_params,
+        mpc_initialize,
+        mpc_step_velocity_command,
+    )
+    from tests import test_torch_velocity_command as tv
+
+    model, _, prob, params, q_guess = load_example("mini_cheetah")
+    params = params.replace(max_iterations=1, check_convergence=False)
+    mpc_params = make_mpc_params(params, 1)
+    x0 = tv._state_estimate(prob, model)
+    carry, sol0 = jax.jit(mpc_initialize)(model, prob, params, q_guess)
+    step = jax.jit(lambda c, x, t, u: mpc_step_velocity_command(
+        model, prob, mpc_params, c, x, t, u))
+    out = {"x0": x0, "q_init": np.asarray(sol0.q)}
+    for i, (t, cmd) in enumerate(tv.CHAIN):
+        carry, sol = step(carry, jnp.asarray(x0), jnp.asarray(t, x0.dtype),
+                          jnp.asarray(cmd, x0.dtype))
+        out[f"q_{i}"] = np.asarray(sol.q)
+        out[f"tau_{i}"] = np.asarray(sol.tau)
+        out[f"Delta_{i}"] = np.asarray(carry.Delta)
+        out[f"q_nom_{i}"] = np.asarray(carry.q_nom)
+    _save("velocity_cheetah", **out)
+
+
 def main(argv):
     which = argv or ["slice", "constraints", "mpc", "fleet", "closed_loop",
                      "dynamics", "partials"]
@@ -280,17 +576,46 @@ def main(argv):
     for name in CLOSED_LOOP:
         if "closed_loop" in which or f"closed_loop:{name}" in which:
             closed_loop(name)
-    if "dynamics" in which:
+    if "dynamics" in which or "dynamics:jaco" in which:
         dynamics_jaco()
     if "partials" in which:
         partials_punyo()
-    if "slice" in which:
+    if "slice" in which or "slice:cheetah" in which:
         slice_cheetah()
     if "constraints" in which:
         for name in ("acrobot", "spinner", "hopper"):
             constraints(name)
     if "mpc" in which:
         mpc_cheetah()
+    for name in ("spinner", "mini_cheetah"):
+        if "soa" in which or f"soa:{name}" in which:
+            soa_case(name)
+    if "aos_punyo" in which:
+        aos_punyo()
+    for name in ("pendulum", "hopper"):
+        if "dynamics" in which or f"dynamics:{name}" in which:
+            dynamics(name)
+    if "closed_loop" in which or "closed_loop:pendulum" in which:
+        closed_loop_pendulum()
+    for name in ("pendulum", "spinner"):
+        if "segment" in which or f"segment:{name}" in which:
+            segment(name)
+    for name in ("pendulum", "spinner"):
+        if "mpc_step" in which or f"mpc_step:{name}" in which:
+            mpc_step_from_carry(name)
+    if "slice" in which or "slice:pendulum" in which:
+        slice_pendulum()
+    if "fd" in which:
+        fd_partials()
+    if "dense" in which:
+        dense_pendulum()
+    for name in ("pendulum", "hopper"):
+        if "linesearch" in which or f"linesearch:{name}" in which:
+            linesearch(name)
+    if "api" in which:
+        api_pendulum()
+    if "velocity" in which:
+        velocity_cheetah()
 
 
 if __name__ == "__main__":

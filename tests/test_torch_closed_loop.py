@@ -10,16 +10,17 @@ Tolerances, all float64 on the CPU:
     takes ``jacfwd``, and jaco's M has condition ~1e4;
   * 1e-9 for a simulated segment of a few substeps from a shared stored
     trajectory;
-  * 1e-7 for ``run_mpc`` over three replans on pendulum (live against
-    JAX), spinner and hopper (against goldens/torch_closed_loop_*.npz): each
+  * 1e-7 for ``run_mpc`` over three replans on pendulum, spinner and
+    hopper (against goldens/torch_closed_loop_*.npz): each
     replan is one trust-region iteration from the last one's carry and the
     simulated state, so differences of 1e-9 a replan compound.
 
-The JAX side is live where it compiles in seconds (pendulum, hopper's
-dynamics, a spinner segment).  Jaco's dynamics
-(goldens/torch_dynamics_jaco.npz) and the spinner's and hopper's loops come
-from ``scripts/make_torch_goldens.py closed_loop dynamics``: their JAX
-compiles take minutes.
+The JAX side is live where it runs eagerly in a second (the PD
+controller).  The dynamics of pendulum, hopper and jaco
+(goldens/torch_dynamics_*.npz), the segments of pendulum and spinner
+(goldens/torch_segment_*.npz) and the loops of pendulum, spinner and hopper
+come from ``scripts/make_torch_goldens.py closed_loop dynamics segment``:
+their JAX compiles take from ten seconds to minutes.
 
 Jaco's loop is unstable.  The simulator is explicit in the PD terms, and
 jaco's YAML gains give h Kd / M = 250 on the wrist joint (inertia 5e-4
@@ -39,7 +40,6 @@ float64, and two runs differ by factors.
 import dataclasses
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,14 +47,8 @@ import torch
 
 from idto_tpu.examples.registry import load_example as jax_load_example
 from idto_tpu.examples.registry import load_sim_plant as jax_load_sim_plant
-from idto_tpu.contact.force import contact_wrenches as jax_contact_wrenches
-from idto_tpu.models import dynamics as jdyn
 from idto_tpu.models.model import JointType
 from idto_tpu.mpc import pd as jpd
-from idto_tpu.mpc import runner as jrunner
-from idto_tpu.mpc import simulator as jsim
-from idto_tpu.mpc.trajectory_store import StoredTrajectory as JStored
-from idto_tpu.optimizer.solver import Solution as JSolution
 from idto_tpu_torch import convert
 from idto_tpu_torch.examples import run as cli
 from idto_tpu_torch.examples.config import ExampleConfig
@@ -78,6 +72,7 @@ RTOL_UNSTABLE = 1e-8  # 2.4e-12 at the sixth substep against the JAX run
 HELD_UNSTABLE = 6  # substeps
 N_STATES = 4
 SIM_H = 2e-3
+PENDULUM_GAINS = dict(Kp=[2.0], Kd=[0.3])  # its YAML has none
 
 
 def _rel(a, b):
@@ -101,30 +96,17 @@ def _states(jm, jprob, rng, n):
 
 @pytest.fixture(scope="module", params=["pendulum", "hopper", "jaco"])
 def dyn_case(request):
-    """Both packages' mass matrix, forward dynamics and simulator step on
-    the same states; the JAX side in one jit, or jaco's from its golden."""
+    """The JAX package's mass matrix, forward dynamics and simulator step
+    at seeded states (goldens/torch_dynamics_*.npz), and the same states
+    for the port."""
     name = request.param
     jm, _, jprob, jparams, _ = jax_load_example(name)
-    jc = jparams.contact
     q, v, u = _states(jm, jprob, np.random.default_rng(5), N_STATES)
-    if name == "jaco":
-        g = np.load(os.path.join(_GOLDENS, "torch_dynamics_jaco.npz"))
-        assert float(g["h"]) == SIM_H
-        assert all(np.array_equal(g[k], x)
-                   for k, x in (("q", q), ("v", v), ("u", u)))
-        ref = (g["M"], g["bias"], g["a"], (g["q_new"], g["v_new"]))
-        return dict(name=name, ref=ref, tm=convert.model(jm, device="cpu"),
-                    tc=convert.solver_params(jparams).contact,
-                    q=torch.tensor(q), v=torch.tensor(v), u=torch.tensor(u))
-
-    def one(qq, vv, uu):
-        wrenches = jax_contact_wrenches(jm, qq, vv, jc)
-        return (jdyn.mass_matrix(jm, qq),
-                jdyn.bias_forces(jm, qq, vv, wrenches),
-                jdyn.forward_dynamics(jm, qq, vv, jm.B @ uu, wrenches),
-                jsim.sim_step(jm, jc, SIM_H, qq, vv, uu))
-
-    ref = jax.jit(jax.vmap(one))(*(jnp.asarray(x) for x in (q, v, u)))
+    g = np.load(os.path.join(_GOLDENS, f"torch_dynamics_{name}.npz"))
+    assert float(g["h"]) == SIM_H
+    assert all(np.array_equal(g[k], x)
+               for k, x in (("q", q), ("v", v), ("u", u)))
+    ref = (g["M"], g["bias"], g["a"], (g["q_new"], g["v_new"]))
     return dict(name=name, ref=ref, tm=convert.model(jm, device="cpu"),
                 tc=convert.solver_params(jparams).contact,
                 q=torch.tensor(q), v=torch.tensor(v), u=torch.tensor(u))
@@ -192,37 +174,47 @@ def _random_solution(jm, jprob, rng):
     return q, v, tau
 
 
-@pytest.mark.parametrize("name", ["pendulum", "spinner"])
-def test_simulate_segment_matches_jax(name):
-    jm, _, jprob, jparams, _ = jax_load_example(name)
+# The simulated segment: stored at t_store, simulated from t_start.
+SEGMENT = dict(t_store=0.02, t_start=0.05, substeps=6)
+
+
+def _segment_inputs(jm, jprob):
+    """A random stored solution, gains and starting state (seed 9)."""
     rng = np.random.default_rng(9)
     q, v, tau = _random_solution(jm, jprob, rng)
-    t_store, t_start, substeps = 0.02, 0.05, 6
     Kp = rng.uniform(1.0, 10.0, jm.nq)
     Kd = rng.uniform(0.1, 1.0, jm.nv)
     q0, v0, _ = _states(jm, jprob, rng, 1)
-    jstored = JStored.from_solution(
-        jm, JSolution(q=jnp.asarray(q), v=jnp.asarray(v),
-                      tau=jnp.asarray(tau)), t_store, jprob.dt)
-    q_j, v_j, log_j = jax.jit(
-        lambda s, a, b: jsim.simulate_segment(
-            jm, jparams.contact, SIM_H, substeps, s, jnp.asarray(Kp),
-            jnp.asarray(Kd), a, b, jnp.asarray(t_start))
-    )(jstored, jnp.asarray(q0[0]), jnp.asarray(v0[0]))
+    return dict(q=q, v=v, tau=tau, Kp=Kp, Kd=Kd, q0=q0, v0=v0)
+
+
+@pytest.mark.parametrize("name", ["pendulum", "spinner"])
+def test_simulate_segment_matches_jax(name):
+    """Against the JAX package's segment from the same inputs
+    (goldens/torch_segment_NAME.npz)."""
+    jm, _, jprob, jparams, _ = jax_load_example(name)
+    x = _segment_inputs(jm, jprob)
+    ref = np.load(os.path.join(_GOLDENS, f"torch_segment_{name}.npz"))
+    for key, val in x.items():
+        assert np.array_equal(ref[key], val), key
+    substeps = SEGMENT["substeps"]
 
     tm = convert.model(jm, device="cpu")
     stored = StoredTrajectory.from_solution(
-        tm, Solution(q=torch.tensor(q)[None], v=torch.tensor(v)[None],
-                     tau=torch.tensor(tau)[None]), t_store, float(jprob.dt))
+        tm, Solution(q=torch.tensor(x["q"])[None],
+                     v=torch.tensor(x["v"])[None],
+                     tau=torch.tensor(x["tau"])[None]),
+        SEGMENT["t_store"], float(jprob.dt))
     q_t, v_t, log_t = simulator.simulate_segment(
         tm, convert.solver_params(jparams).contact, SIM_H, substeps, stored,
-        torch.tensor(Kp), torch.tensor(Kd), torch.tensor(q0),
-        torch.tensor(v0), t_start)
-    assert _rel(q_t[0], q_j) < RTOL_SEGMENT
-    assert _rel(v_t[0], v_j) < RTOL_SEGMENT
-    for x_t, x_j, width in zip(log_t, log_j, (jm.nq, jm.nv, jm.nu)):
+        torch.tensor(x["Kp"]), torch.tensor(x["Kd"]), torch.tensor(x["q0"]),
+        torch.tensor(x["v0"]), SEGMENT["t_start"])
+    assert _rel(q_t[0], ref["q_end"]) < RTOL_SEGMENT
+    assert _rel(v_t[0], ref["v_end"]) < RTOL_SEGMENT
+    for x_t, key, width in zip(log_t, ("log_q", "log_v", "log_u"),
+                               (jm.nq, jm.nv, jm.nu)):
         assert x_t.shape == (1, substeps, width)
-        assert _rel(x_t[0], x_j) < RTOL_SEGMENT
+        assert _rel(x_t[0], ref[key]) < RTOL_SEGMENT
     assert torch.equal(log_t[0][:, -1], q_t)
 
 
@@ -248,26 +240,23 @@ def _check_loop(res, plans, model, cfg, prob, replans):
 
 
 def test_run_mpc_matches_jax_on_pendulum():
-    """Three replans live against JAX, the initial solve cut to three
-    iterations, gains put in (the pendulum's YAML has none)."""
-    replans, init_iters = 3, 3
-    more = dict(Kp=[2.0], Kd=[0.3])
-    jm, jcfg, jprob, jparams, jqg = jax_load_example("pendulum")
-    jres = jrunner.run_mpc(jm, _short(jcfg, replans, **more), jprob,
-                           jparams.replace(max_iterations=init_iters), jqg)
-
+    """Three replans against the JAX run (goldens/torch_closed_loop_
+    pendulum.npz), the initial solve cut to three iterations, gains put
+    in."""
+    ref = np.load(os.path.join(_GOLDENS, "torch_closed_loop_pendulum.npz"))
+    replans, init_iters = int(ref["replans"]), int(ref["init_iters"])
     model, cfg, prob, params, q_guess = load_example("pendulum", device="cpu")
-    cfg = _short(cfg, replans, **more)
+    cfg = _short(cfg, replans, **PENDULUM_GAINS)
     plans = []
     res = runner.run_mpc(model, cfg, prob,
                          params.replace(max_iterations=init_iters), q_guess,
                          on_replan=lambda t, q: plans.append((t, q)))
     _check_loop(res, plans, model, cfg, prob, replans)
-    assert jres.num_solves == replans
-    assert np.array_equal(res.times, jres.times)
-    assert np.abs(jres.u_log).max() > 0.0
+    assert int(ref["num_solves"]) == replans
+    assert np.array_equal(res.times, ref["times"])
+    assert np.abs(ref["u_log"]).max() > 0.0
     for key in ("q_log", "v_log", "u_log"):
-        assert _rel(getattr(res, key), getattr(jres, key)) < RTOL_LOOP, key
+        assert _rel(getattr(res, key), ref[key]) < RTOL_LOOP, key
 
 
 @pytest.mark.parametrize("name", ["spinner", "hopper"])
@@ -399,7 +388,31 @@ def test_cli_defaults_to_the_card_and_has_no_idle_flags():
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             cli.main(["pendulum", "--test"])
-    for flag in ("--stats-csv=x.csv", "--profile", "--platform=cpu",
-                 "--live", "--playback=x.html"):
+    for flag in ("--platform=cpu", "--live", "--playback=x.html"):
         with pytest.raises(SystemExit):
             cli.main(["pendulum", flag])
+
+
+def test_cli_writes_the_csv_files_and_the_profile(capsys, monkeypatch,
+                                                  tmp_path):
+    load = ExampleConfig.load.__func__
+
+    def short_load(cls, path):
+        return dataclasses.replace(load(cls, path), max_iters=2)
+
+    monkeypatch.setattr(ExampleConfig, "load", classmethod(short_load))
+    files = {flag: str(tmp_path / f"{flag.strip('-')}.csv") for flag in (
+        "--stats-csv", "--contour-csv", "--lineplot-csv", "--quadratic-csv",
+        "--linesearch-csv")}
+    argv = ["acrobot", "--device", "cpu", "--print-debug-data", "--profile"]
+    for flag, path in files.items():
+        argv += [flag, path]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "iterations:     2" in out
+    assert out.count("condition_number_scaled = ") == 2
+    assert "ms/sample" in out and "first solve" in out
+    stats = np.loadtxt(files["--stats-csv"], delimiter=",", skiprows=1)
+    assert stats.shape == (2, 14) and (stats[:, 1] > 0).all()
+    for path in files.values():
+        assert os.path.getsize(path) > 0

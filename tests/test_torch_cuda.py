@@ -416,3 +416,162 @@ def test_jaco_closed_loop_on_card_overflows_where_the_golden_does(cuda):
         x, y = getattr(res, key)[:held], ref[key][:held]
         err = np.abs(x - y).max(axis=1) / np.abs(y).max(axis=1)
         assert err.max() < chip_smoke.UNSTABLE_LOOP_RTOL, (key, err)
+
+
+# -- the solver options, the object API and the velocity command ------------
+
+
+@pytest.mark.cuda
+def test_api_on_card_matches_golden(cuda):
+    """``TrajectoryOptimizer.Solve`` and ``SolveFromWarmStart`` on the card
+    through the kernel (one launch an iteration) against the JAX package's
+    golden; cyclic reduction against its Thomas: 1e-8, as the slice."""
+    from idto_tpu_torch.api import TrajectoryOptimizer
+
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               "torch_api_pendulum.npz"))
+    iters = 4
+    model, _, prob, params, q_guess = load_example("pendulum", device=cuda)
+    opt = TrajectoryOptimizer(model, prob, params.replace(
+        max_iterations=iters,
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION))
+    before = cr_kernel.launches
+    sol, stats = opt.Solve(q_guess)
+    ws = opt.CreateWarmStart(q_guess)
+    sol_w, _ = opt.SolveFromWarmStart(ws)
+    torch.cuda.synchronize()
+    assert cr_kernel.launches == before + 2 * iters
+    assert sol.q.device.type == "cuda" and ws.q.device.type == "cuda"
+    assert _rel(sol.q.cpu(), ref["q"]) < 1e-8
+    assert _rel(sol_w.q.cpu(), ref["warm_solve_q"]) < 1e-8
+    assert _rel(ws.dqH, ref["ws_dqH"]) < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pendulum", "hopper"])
+def test_linesearch_on_card_matches_golden(cuda, name):
+    """The linesearch on the card (Thomas, no launch) against the JAX
+    package's golden at tests/test_torch_linesearch.py's tolerances."""
+    from idto_tpu_torch.optimizer import solver
+    from idto_tpu_torch.optimizer.problem import (
+        LinesearchMethod,
+        SolverMethod,
+    )
+
+    method, iters = {"pendulum": ("armijo", 6),
+                     "hopper": ("backtracking", 3)}[name]
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               f"torch_linesearch_{name}.npz"))
+    model, _, prob, params, q_guess = load_example(name, device=cuda)
+    before = cr_kernel.launches
+    sol, stats, _ = solver.solve(model, prob, params.replace(
+        method=SolverMethod.LINESEARCH,
+        linesearch_method=LinesearchMethod(method), max_iterations=iters),
+        q_guess)
+    assert cr_kernel.launches == before
+    assert int(stats.num_iters) == int(ref["num_iters"])
+    assert np.array_equal(stats.ls_iters.cpu().numpy(), ref["ls_iters"])
+    assert _rel(sol.q.cpu(), ref["q"]) < (1e-9 if name == "pendulum"
+                                          else 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", ["dense", "exact"])
+def test_dense_solves_on_card_match_golden(cuda, tag):
+    """The dense LU path (Gauss-Newton and exact Hessian) on the card
+    against the JAX package's golden: no launch, 1e-9."""
+    from idto_tpu_torch.optimizer import solver
+
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               "torch_dense_pendulum.npz"))
+    model, _, prob, params, q_guess = load_example("pendulum", device=cuda)
+    more = (dict(linear_solver=LinearSolverType.DENSE_LDLT) if tag == "dense"
+            else dict(exact_hessian=True))
+    before = cr_kernel.launches
+    sol, stats, _ = solver.solve(model, prob, params.replace(
+        max_iterations=4, **more), q_guess)
+    assert cr_kernel.launches == before
+    assert _rel(sol.q.cpu(), ref[f"{tag}_q"]) < 1e-9
+    assert _rel(stats.cost.cpu(), ref[f"{tag}_cost"]) < 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 4])
+def test_fd_partials_on_card_match_cpu(cuda, order):
+    """The batch-native finite differences on the card against the CPU
+    run, at the tolerances the CPU run is held to JAX's."""
+    from idto_tpu_torch.optimizer.partials import id_partials_fd
+
+    model, _, prob, params, q_guess = load_example("spinner", device="cpu")
+    T = 4
+    prob = prob.replace(num_steps=T, q_nom=prob.q_nom[: T + 1],
+                        v_nom=prob.v_nom[: T + 1])
+    rng = np.random.default_rng(0)
+    qs = q_guess[None, : T + 1].repeat(3, 1, 1) + 0.02 * torch.as_tensor(
+        rng.standard_normal((3, T + 1, model.nq)))
+    want = id_partials_fd(model, prob, params.contact, qs, order=order)
+    got = id_partials_fd(model.to(device=cuda), prob.to(device=cuda),
+                         params.contact, qs.to(cuda), order=order)
+    for x_d, x_c in zip(got, want):
+        assert _rel(x_d.cpu(), x_c) < {1: 1e-6, 2: 1e-9, 4: 1e-11}[order]
+
+
+@pytest.mark.cuda
+def test_diagnostics_on_card(cuda, capsys):
+    """verbose, the dense cross-check and the iteration timer (CUDA
+    events) through the kernel: a row, a compare line and a positive time
+    an iteration."""
+    from idto_tpu_torch.optimizer import solver
+
+    model, _, prob, params, q_guess = load_example("pendulum", device=cuda)
+    iters = 3
+    before = cr_kernel.launches
+    _, stats, _ = solver.solve(model, prob, params.replace(
+        max_iterations=iters, verbose=True, debug_compare_against_dense=True,
+        record_iteration_times=True,
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION), q_guess)
+    assert cr_kernel.launches == before + iters
+    out = capsys.readouterr().out.splitlines()
+    errs = [float(ln.split(":")[1]) for ln in out
+            if ln.startswith("[debug] sparse vs. dense")]
+    assert len(errs) == iters and max(errs) < 1e-8
+    t = stats.time.cpu().numpy()
+    assert (t[:iters] > 0).all() and np.isnan(t[iters:]).all()
+
+
+@pytest.mark.cuda
+def test_velocity_command_chain_on_card_matches_golden(cuda):
+    """mpc_initialize and two velocity-command replans through the kernel
+    (one launch each) against the JAX package's golden chain, which went
+    through Thomas: 5e-6, as the fixed-nominal chain above."""
+    from idto_tpu_torch.mpc import controller as mpc
+
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               "torch_velocity_cheetah.npz"))
+    chain = ((0.0, (0.3, 0.0, 0.0)), (1.0 / 60.0, (0.2, 0.1, 0.5)))
+    model, _, prob, params, q_guess = load_example("mini_cheetah",
+                                                   device=cuda)
+    params = params.replace(max_iterations=1, check_convergence=False,
+                            linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+    mpc_params = mpc.make_mpc_params(params, 1)
+    probs = broadcast_problem(prob, 1)
+    carry, _ = mpc.mpc_initialize(model, probs, params, q_guess[None])
+    x0 = torch.as_tensor(ref["x0"], device=cuda)[None]
+    for i, (t, cmd) in enumerate(chain):
+        before = cr_kernel.launches
+        carry, sol = mpc.mpc_step_velocity_command(
+            model, probs, mpc_params, carry, x0, t,
+            torch.tensor(cmd, dtype=torch.float64, device=cuda))
+        torch.cuda.synchronize()
+        assert cr_kernel.launches == before + 1
+        assert _rel(sol.q[0].cpu(), ref[f"q_{i}"]) < 5e-6
+        assert _rel(carry.q_nom[0].cpu(), ref[f"q_nom_{i}"]) < 1e-12
+
+
+@pytest.mark.cuda
+def test_timing_helpers_on_card(cuda):
+    from idto_tpu_torch.utils import timing
+
+    x = torch.ones(256, 256, dtype=torch.float64, device=cuda)
+    assert timing.time_fn(lambda a: a @ a, [(x,)], reps=3) > 0.0
+    assert timing.time_throughput(lambda a: a @ a, [(x,)], calls=3) > 0.0

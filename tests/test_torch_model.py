@@ -6,6 +6,7 @@ package's ``load_example``: static topology equal, numbers equal to the
 last bit (both parse the same files into float64 with numpy).
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -128,33 +129,34 @@ def test_registry_and_model_helpers():
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Importing the whole port slice pulls in no JAX and no idto_tpu."""
+    """Importing every module of the port (found by walking the package,
+    so a new module is checked without being listed) and ``chip_smoke``
+    pulls in no JAX and no idto_tpu."""
     code = (
-        "import sys\n"
-        "import idto_tpu_torch.convert\n"
-        "import idto_tpu_torch.examples.registry\n"
-        "import idto_tpu_torch.examples.config\n"
-        "import idto_tpu_torch.parallel.batching\n"
-        "import idto_tpu_torch.optimizer.batched\n"
-        "import idto_tpu_torch.optimizer.solver\n"
-        "import idto_tpu_torch.ops.cr_kernel\n"
-        "import idto_tpu_torch.soa.partials\n"
-        "import idto_tpu_torch.ops.cyclic_reduction\n"
-        "import idto_tpu_torch.mpc.controller\n"
-        "import idto_tpu_torch.mpc.trajectory_store\n"
-        "import idto_tpu_torch.mpc.pd\n"
-        "import idto_tpu_torch.mpc.simulator\n"
-        "import idto_tpu_torch.mpc.runner\n"
-        "import idto_tpu_torch.examples.run\n"
+        "import importlib, json, pkgutil, sys\n"
+        "import idto_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "idto_tpu_torch.__path__, 'idto_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
         "from idto_tpu_torch.examples.registry import load_example\n"
         "load_example('mini_cheetah', device='cpu')\n"
         "load_example('punyo', device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'idto_tpu.')) or m == 'idto_tpu')\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(json.dumps({'names': names, 'bad': bad}))\n"
     )
     env = dict(os.environ, PYTHONPATH=_REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.splitlines()[-1])
+    assert out["bad"] == []
+    for name in ("idto_tpu_torch.api", "idto_tpu_torch.optimizer.linesearch",
+                 "idto_tpu_torch.examples.velocity_command",
+                 "idto_tpu_torch.utils.checkpoint",
+                 "idto_tpu_torch.utils.profiler",
+                 "idto_tpu_torch.utils.timing", "idto_tpu_torch.ops.cr_kernel",
+                 "idto_tpu_torch.mpc.runner"):
+        assert name in out["names"], name

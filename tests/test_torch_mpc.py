@@ -11,7 +11,9 @@ The cheetah chain (initialize, then two replans, each from the port's own
 previous carry) is held to goldens/torch_mpc_cheetah.npz, which
 scripts/make_torch_goldens.py writes from ``idto_tpu``'s ``mpc_initialize``
 and ``mpc_step`` (single-trajectory AoS solver), at 1e-7: three chained
-iterations.
+iterations.  The replan from a seeded carry is held to
+goldens/torch_mpc_step_{pendulum,spinner}.npz (``make_torch_goldens.py
+mpc_step``): its JAX compile takes up to a minute.
 """
 import os
 
@@ -154,6 +156,34 @@ def test_shift_nominal_matches_jax_on_the_cheetah(mask_quat):
 # -- one replan from a converted carry --------------------------------------
 
 
+T_NOW = 0.013
+
+
+def _relative_mask(cfg, model):
+    return np.asarray(cfg.q_nom_relative_to_q_init
+                      if cfg.q_nom_relative_to_q_init is not None
+                      else [False] * model.nq)
+
+
+def _state_estimate(model, prob, rng):
+    return np.concatenate([
+        np.asarray(prob.q_init) + 0.02 * rng.standard_normal(model.nq),
+        0.02 * rng.standard_normal(model.nv)])
+
+
+def _carry_from_golden(ref, tag):
+    """The JAX package's MpcCarry as attributes over the golden's arrays
+    (what ``convert.mpc_carry`` reads)."""
+    from types import SimpleNamespace as NS
+
+    def spline(part):
+        return NS(**{k: ref[f"{tag}_{part}_{k}"] for k in ("dt", "y", "M")})
+
+    return NS(stored=NS(start_time=ref[f"{tag}_start_time"], q=spline("q"),
+                        v=spline("v"), u=spline("u")),
+              Delta=ref[f"{tag}_Delta"], q_nom=ref[f"{tag}_q_nom"])
+
+
 def _jax_carry(jm, jprob, rng):
     """A carry as ``mpc_initialize`` leaves it, from a seeded trajectory
     near the nominal instead of a solve."""
@@ -175,21 +205,17 @@ def _jax_carry(jm, jprob, rng):
 def test_mpc_step_matches_jax_from_a_converted_carry(name):
     """pendulum (no constraints) and spinner (equality constraints, contact,
     a relative nominal DoF): the same carry, state estimate and time go
-    through both packages' ``mpc_step``."""
-    jm, jcfg, jprob, jparams, _ = jax_load_example(name)
-    jmpc_params = jmpc.make_mpc_params(jparams, 1)
-    rel = np.asarray(jcfg.q_nom_relative_to_q_init
-                     if jcfg.q_nom_relative_to_q_init is not None
-                     else [False] * jm.nq)
+    through both packages' ``mpc_step`` (the JAX one in
+    goldens/torch_mpc_step_NAME.npz)."""
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               f"torch_mpc_step_{name}.npz"))
+    jm, jcfg, jprob, _, _ = jax_load_example(name)
+    rel = _relative_mask(jcfg, jm)
     rng = np.random.default_rng(7)
     jcarry = _jax_carry(jm, jprob, rng)
-    x0 = np.concatenate([
-        np.asarray(jprob.q_init) + 0.02 * rng.standard_normal(jm.nq),
-        0.02 * rng.standard_normal(jm.nv)])
-    t_now = 0.013
-    jnew, jsol = jax.jit(
-        lambda c, x, t: jmpc.mpc_step(jm, jprob, jmpc_params, rel, c, x, t)
-    )(jcarry, jnp.asarray(x0), jnp.asarray(t_now))
+    x0 = _state_estimate(jm, jprob, rng)
+    assert np.array_equal(ref["x0"], x0)
+    assert np.array_equal(ref["in_q_y"], np.asarray(jcarry.stored.q.y))
 
     model, cfg, prob, params, _ = load_example(name, device="cpu")
     mpc_params = mpc.make_mpc_params(params, 1)
@@ -197,22 +223,21 @@ def test_mpc_step_matches_jax_from_a_converted_carry(name):
     assert not mpc_params.check_convergence
     carry = convert.mpc_carry(jcarry, device="cpu")
     new, sol = mpc.mpc_step(model, broadcast_problem(prob, 1), mpc_params,
-                            rel, carry, torch.as_tensor(x0)[None], t_now)
+                            rel, carry, torch.as_tensor(x0)[None], T_NOW)
     assert sol.q.shape == (1, prob.num_steps + 1, model.nq)
     assert torch.equal(sol.q[0, 0], torch.as_tensor(x0[: model.nq]))
-    assert _rel(sol.q[0], jsol.q) < 1e-8
-    assert _rel(sol.v[0], jsol.v) < 1e-8
-    assert _rel(sol.tau[0], jsol.tau) < 1e-8
-    assert _rel(new.Delta[0], jnew.Delta) < 1e-12
-    assert _rel(new.q_nom[0], jnew.q_nom) < 1e-12
-    assert float(new.stored.start_time) == t_now
-    for spline, jspline in ((new.stored.q, jnew.stored.q),
-                            (new.stored.v, jnew.stored.v),
-                            (new.stored.u, jnew.stored.u)):
-        assert _rel(spline.y[0], jspline.y) < 1e-8
-        assert _rel(spline.M[0], jspline.M) < 1e-8
+    assert _rel(sol.q[0], ref["q"]) < 1e-8
+    assert _rel(sol.v[0], ref["v"]) < 1e-8
+    assert _rel(sol.tau[0], ref["tau"]) < 1e-8
+    assert _rel(new.Delta[0], ref["Delta"]) < 1e-12
+    assert _rel(new.q_nom[0], ref["q_nom"]) < 1e-12
+    assert float(new.stored.start_time) == T_NOW
+    for part in ("q", "v", "u"):
+        spline = getattr(new.stored, part)
+        assert _rel(spline.y[0], ref[f"out_{part}_y"]) < 1e-8
+        assert _rel(spline.M[0], ref[f"out_{part}_M"]) < 1e-8
     # The converted carry round-trips.
-    back = convert.mpc_carry(jnew, device="cpu")
+    back = convert.mpc_carry(_carry_from_golden(ref, "out"), device="cpu")
     assert _rel(back.stored.q.y, new.stored.q.y) < 1e-8
     assert back.Delta.shape == (1,) and back.q_nom.shape == new.q_nom.shape
 

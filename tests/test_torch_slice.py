@@ -3,10 +3,10 @@ solve (``solve_batch``) with block cyclic reduction, against the JAX
 package's batch-native solve with the fused Pallas kernel forced on
 (``cr_use_pallas=True``, interpret mode on the CPU).
 
-  * pendulum, live: both packages solve the same seeded batch;
-  * mini_cheetah, from goldens/torch_slice_cheetah.npz, which
-    scripts/make_torch_goldens.py writes from the JAX package (its
-    cheetah solve takes minutes to compile on a CPU).
+  * pendulum and mini_cheetah, from goldens/torch_slice_{pendulum,
+    cheetah}.npz, which scripts/make_torch_goldens.py writes from the JAX
+    package (its solves take from half a minute to minutes to compile on a
+    CPU).
 
 Tolerance 1e-8 on q, cost and rho per iteration: both sides run the same
 float64 algorithm, differing only in summation order (~1e-15), and a few
@@ -15,15 +15,9 @@ number.  Iteration counts and solver flags must be equal.
 """
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-from idto_tpu.examples.registry import load_example as jax_load_example
-from idto_tpu.optimizer.problem import LinearSolverType as JaxLinearSolver
-from idto_tpu.parallel.batching import broadcast_problem as jax_broadcast
-from idto_tpu.parallel.batching import solve_batch as jax_solve_batch
 from idto_tpu_torch.examples.registry import load_example
 from idto_tpu_torch.ops import cr_kernel
 from idto_tpu_torch.optimizer.problem import LinearSolverType
@@ -34,8 +28,19 @@ from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
 torch.set_num_threads(1)
 
 RTOL = 1e-8
-_GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "goldens", "torch_slice_cheetah.npz")
+_GOLDENS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "goldens")
+_GOLDEN = os.path.join(_GOLDENS, "torch_slice_cheetah.npz")
+PENDULUM_B, PENDULUM_ITERS = 3, 8
+
+
+def _pendulum_guesses(prob, q_guess):
+    """The example's guess plus 0.01 N(0, 1) from seed 0, q_0 pinned."""
+    rng = np.random.default_rng(0)
+    qg = np.asarray(q_guess)[None] + 0.01 * rng.standard_normal(
+        (PENDULUM_B,) + np.shape(q_guess))
+    qg[:, 0] = np.asarray(prob.q_init)
+    return qg
 
 
 def _rel(a, b):
@@ -70,30 +75,19 @@ def _port_solve(name, q_guess, max_iterations):
 
 
 def test_pendulum_matches_jax_live():
-    B, iters = 3, 8
-    jm, _, jprob, jparams, jqg = jax_load_example("pendulum")
-    jparams = jparams.replace(
-        max_iterations=iters, verbose=False, record_iteration_times=False,
-        linear_solver=JaxLinearSolver.CYCLIC_REDUCTION, cr_use_pallas=True,
-    )
-    rng = np.random.default_rng(0)
-    qg = np.asarray(jqg)[None] + 0.01 * rng.standard_normal(
-        (B,) + np.shape(jqg))
-    qg[:, 0] = np.asarray(jprob.q_init)
-    jsol, jst, _ = jax.jit(
-        lambda p, q: jax_solve_batch(jm, p, jparams, q, native=True)
-    )(jax_broadcast(jprob, B), jnp.asarray(qg))
-
+    """The seeded batch against the JAX solve of it
+    (goldens/torch_slice_pendulum.npz)."""
+    ref = np.load(os.path.join(_GOLDENS, "torch_slice_pendulum.npz"))
+    _, _, prob, _, q_guess = load_example("pendulum", device="cpu")
+    qg = _pendulum_guesses(prob, q_guess)
+    assert np.array_equal(ref["q_guess"], qg)
     before = cr_kernel.launches
-    sol, stats, warm = _port_solve("pendulum", qg, iters)
+    sol, stats, warm = _port_solve("pendulum", qg, PENDULUM_ITERS)
     assert cr_kernel.launches == before  # CPU tensors: the plain version
-    assert _rel(sol.q, jsol.q) < RTOL
-    assert _rel(sol.tau, jsol.tau) < RTOL
-    _assert_stats_match(stats, {
-        k: np.asarray(getattr(jst, k))
-        for k in ("num_iters", "solver_flag", "cost", "rho")
-    })
-    assert warm.q.shape == (B,) + np.shape(jqg)
+    assert _rel(sol.q, ref["q"]) < RTOL
+    assert _rel(sol.tau, ref["tau"]) < RTOL
+    _assert_stats_match(stats, ref)
+    assert warm.q.shape == (PENDULUM_B,) + tuple(q_guess.shape)
 
 
 def test_mini_cheetah_matches_jax_golden():

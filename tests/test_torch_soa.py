@@ -7,8 +7,12 @@ box-box pairs).
 Both sides evaluate the same float64 expressions in the same order, up to
 the summation order of small contractions, so values agree to ~1e-15;
 the stated tolerances are 1e-10 relative (1e-9 for the partials, which
-pass through three nested forward/reverse derivatives).  The JAX side is
-jitted: its eager partials take minutes on the cheetah.
+pass through three nested forward/reverse derivatives).  The JAX side's
+kinematics, inverse dynamics, contact, step_tau, rollout, cost and partials
+come from goldens/torch_soa_{spinner,mini_cheetah}.npz and punyo's AoS
+wrenches from goldens/torch_aos_punyo.npz (``scripts/make_torch_goldens.py
+soa aos_punyo``): eagerly or jitted, each takes from seconds to a minute on
+the CPU.
 """
 import os
 
@@ -21,10 +25,7 @@ import torch
 from idto_tpu.examples.registry import load_example as jax_load_example
 from idto_tpu.models.model import JointType
 from idto_tpu.soa import contact as jcon
-from idto_tpu.soa import dynamics as jdyn
-from idto_tpu.soa import kinematics as jkin
 from idto_tpu.soa import partials as jpart
-from idto_tpu.soa import rollout as jroll
 from idto_tpu_torch import convert
 from idto_tpu_torch.soa import contact as tcon
 from idto_tpu_torch.soa import dynamics as tdyn
@@ -67,7 +68,7 @@ def _setup(name):
     # States near the trajectory, where the contacts are active.
     qn = qs[:, 1:].reshape(n, jm.nq).T
     return dict(
-        jm=jm, jprob=jprob, jc=jparams.contact,
+        name=name, jm=jm, jprob=jprob, jc=jparams.contact,
         tm=convert.model(jm, device="cpu"),
         tprob=convert.problem(jprob, device="cpu"),
         tc=convert.solver_params(jparams).contact,
@@ -80,65 +81,63 @@ def case(request):
     return _setup(request.param)
 
 
+def _golden(case):
+    """The JAX outputs at the case's inputs, which must be the same."""
+    ref = np.load(os.path.join(_GOLDENS, f"torch_soa_{case['name']}.npz"))
+    for key in ("q", "v", "a", "qn", "qs"):
+        assert np.array_equal(ref[key], case[key]), key
+    return ref
+
+
 def test_kinematics(case):
-    jm, tm = case["jm"], case["tm"]
-    q, v = case["q"], case["v"]
-    for x_t, x_j in zip(tkin.forward_kinematics(tm, torch.tensor(q)),
-                        jkin.forward_kinematics(jm, jnp.asarray(q))):
-        assert _rel(x_t, x_j) < RTOL
-    for x_t, x_j in zip(
-        tkin.body_velocities(tm, torch.tensor(q), torch.tensor(v)),
-        jkin.body_velocities(jm, jnp.asarray(q), jnp.asarray(v)),
-    ):
-        assert _rel(x_t, x_j) < RTOL
-    qd_t = tkin.v_to_qdot(tm, torch.tensor(q), torch.tensor(v))
-    qd_j = jkin.v_to_qdot(jm, jnp.asarray(q), jnp.asarray(v))
-    assert _rel(qd_t, qd_j) < RTOL
-    assert _rel(tkin.qdot_to_v(tm, torch.tensor(q), qd_t),
-                jkin.qdot_to_v(jm, jnp.asarray(q), qd_j)) < RTOL
-    assert _rel(tkin.nplus_matrix(tm, torch.tensor(q)),
-                jkin.nplus_matrix(jm, jnp.asarray(q))) < RTOL
+    tm = case["tm"]
+    ref = _golden(case)
+    q, v = torch.tensor(case["q"]), torch.tensor(case["v"])
+    for tag, outs in (("fk", tkin.forward_kinematics(tm, q)),
+                      ("bv", tkin.body_velocities(tm, q, v))):
+        outs = list(outs)
+        assert len(outs) == len([k for k in ref.files
+                                 if k.startswith(tag + "_")])
+        for i, x_t in enumerate(outs):
+            assert _rel(x_t, ref[f"{tag}_{i}"]) < RTOL
+    qd_t = tkin.v_to_qdot(tm, q, v)
+    assert _rel(qd_t, ref["qdot"]) < RTOL
+    assert _rel(tkin.qdot_to_v(tm, q, qd_t), ref["v_back"]) < RTOL
+    assert _rel(tkin.nplus_matrix(tm, q), ref["nplus"]) < RTOL
 
 
 def test_dynamics_and_contact(case):
-    jm, tm = case["jm"], case["tm"]
+    tm = case["tm"]
+    ref = _golden(case)
     q, v, a, qn = (case[k] for k in ("q", "v", "a", "qn"))
     tau_t = tdyn.inverse_dynamics(tm, *(torch.tensor(x) for x in (q, v, a)))
-    tau_j = jdyn.inverse_dynamics(jm, *(jnp.asarray(x) for x in (q, v, a)))
-    assert _rel(tau_t, tau_j) < RTOL
+    assert _rel(tau_t, ref["tau"]) < RTOL
     for x_t, x_j in zip(
         tcon.contact_wrenches(tm, torch.tensor(qn), torch.tensor(v),
                               case["tc"]),
-        jcon.contact_wrenches(jm, jnp.asarray(qn), jnp.asarray(v),
-                              case["jc"]),
+        (ref["torques"], ref["forces"]),
     ):
         assert _rel(x_t, x_j) < RTOL
     st_t = tcon.step_tau(tm, case["tc"], torch.tensor(qn), torch.tensor(v),
                          torch.tensor(a))
-    st_j = jcon.step_tau(jm, case["jc"], jnp.asarray(qn), jnp.asarray(v),
-                         jnp.asarray(a))
-    assert _rel(st_t, st_j) < RTOL
+    assert _rel(st_t, ref["step_tau"]) < RTOL
 
 
 def test_rollout_cost(case):
-    qs = case["qs"]
+    ref = _golden(case)
+    qs = torch.tensor(case["qs"])
     tau_t, v_t = troll.generalized_forces(case["tm"], case["tprob"],
-                                          case["tc"], torch.tensor(qs))
-    tau_j, v_j = jroll.generalized_forces(case["jm"], case["jprob"],
-                                          case["jc"], jnp.asarray(qs))
-    assert _rel(v_t, v_j) < RTOL and _rel(tau_t, tau_j) < RTOL
-    assert _rel(troll.cost(case["tm"], case["tprob"], case["tc"],
-                           torch.tensor(qs)),
-                jroll.cost(case["jm"], case["jprob"], case["jc"],
-                           jnp.asarray(qs))) < RTOL
+                                          case["tc"], qs)
+    assert _rel(v_t, ref["roll_v"]) < RTOL and _rel(tau_t, ref["roll_tau"]) < RTOL
+    assert _rel(troll.cost(case["tm"], case["tprob"], case["tc"], qs),
+                ref["cost"]) < RTOL
 
 
 def test_partials(case):
-    jm, jprob, jc = case["jm"], case["jprob"], case["jc"]
+    jm = case["jm"]
     qs = case["qs"]
-    p_j = jax.jit(
-        lambda x: jpart.id_partials_batched(jm, jprob, jc, x)
-    )(jnp.asarray(qs))
+    ref = _golden(case)
+    p_j = (ref["dtau_dqm"], ref["dtau_dqt"], ref["dtau_dqp"])
     p_t = tpart.id_partials_batched(case["tm"], case["tprob"], case["tc"],
                                     torch.tensor(qs))
     for x_t, x_j in zip(p_t, p_j):
@@ -262,8 +261,7 @@ def test_capsule_pairs_match_aos_distance(pair):
     assert np.abs((wb - wa) - phi * nhat).max() < 2e-6
 
 
-@pytest.fixture(scope="module")
-def punyo():
+def _punyo_inputs():
     jm, _, jprob, jparams, jqg = jax_load_example("punyo")
     rng = np.random.default_rng(3)
     n = 6
@@ -278,25 +276,27 @@ def punyo():
                 tc=convert.solver_params(jparams).contact, q=q, v=v, a=a)
 
 
-def test_punyo_wrenches_and_step_tau_match_aos(punyo):
-    from idto_tpu.contact.force import contact_wrenches as aos_wrenches
-    from idto_tpu.optimizer.trajectory import step_tau as aos_step_tau
+@pytest.fixture(scope="module")
+def punyo():
+    return _punyo_inputs()
 
-    jm, jc, tm, tc = (punyo[k] for k in ("jm", "jc", "tm", "tc"))
+
+def test_punyo_wrenches_and_step_tau_match_aos(punyo):
+    """Against the AoS reference's wrenches and step_tau at the same
+    states (goldens/torch_aos_punyo.npz)."""
+    ref = np.load(os.path.join(_GOLDENS, "torch_aos_punyo.npz"))
+    for key in ("q", "v", "a"):
+        assert np.array_equal(ref[key], punyo[key]), key
+    tm, tc = punyo["tm"], punyo["tc"]
     q, v, a = (punyo[k] for k in ("q", "v", "a"))
-    tq_j, f_j = jax.jit(jax.vmap(
-        lambda qq, vv: aos_wrenches(jm, qq, vv, jc)
-    ))(jnp.asarray(q.T), jnp.asarray(v.T))
+    tq_j, f_j = ref["torques"], ref["forces"]
     tq_t, f_t = tcon.contact_wrenches(tm, torch.tensor(q), torch.tensor(v), tc)
     assert np.abs(np.asarray(f_j)).max() > 1.0  # the contacts are active
     # (3, nl, N) against (N, nl, 3)
     assert _rel(tq_t.permute(2, 1, 0), tq_j) < RTOL_PUNYO
     assert _rel(f_t.permute(2, 1, 0), f_j) < RTOL_PUNYO
-    tau_j = jax.jit(jax.vmap(
-        lambda qq, vv, aa: aos_step_tau(jm, jc, qq, vv, aa)
-    ))(*(jnp.asarray(x.T) for x in (q, v, a)))
     tau_t = tcon.step_tau(tm, tc, *(torch.tensor(x) for x in (q, v, a)))
-    assert _rel(tau_t.T, tau_j) < RTOL_PUNYO
+    assert _rel(tau_t.T, ref["tau"]) < RTOL_PUNYO
 
 
 def test_punyo_partials_match_central_differences(punyo):
