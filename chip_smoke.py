@@ -228,6 +228,33 @@ OPTIONS_ITERS = 2
 # the CPU, as above): the kernel against the dense LU, and each line of the
 # dense cross-check through the kernel, held to 1e-2.
 CR_VS_DENSE_TOL = 1e-2
+# The geometry phase: the cheetah with three cylinder hills (B=256, two
+# iterations) and a pad whose collision geometry is the convex hull of a
+# box's 8 corners (an OBJ <mesh> in an SDF file) over a ground halfspace
+# (B=256, T=20, two iterations); each against the port's CPU run of its
+# first scenarios, the pad also against the same pad built as a BOX
+# primitive on the card (the hull of a box is the box: the same support
+# points, so the solves agree to rounding).  Then one evaluation of the
+# contact wrenches and of their exact q partials on the hull pad against
+# the cheetah's ground box (a CONVEX-BOX pair: 64 alternating projections,
+# each a 48-step Frank-Wolfe projection onto the hull) over N instances.
+GEOMETRY_BATCH = 256
+GEOMETRY_ITERS = 2
+GEOMETRY_NREF = 4
+HILLS = 3
+GEOMETRY_RTOL = 1e-8
+BOX_HULL_RTOL = 1e-10
+PAD_HALF = (0.1, 0.1, 0.02)
+PAD_T = 20
+PAD_K = 7  # the pad's nq: blocks of 7, super-rows of K = 14
+WRENCH_N = 5120
+WRENCH_NREF = 64  # instances run again on the CPU
+# Relative to the largest entry; 6.6e-16 measured on an H100 80GB HBM3 at
+# 700 W.  (The hull distance is decided by rounding where Frank-Wolfe has
+# not converged, tests/test_torch_convex.py; at these poses card and CPU
+# take the same paths.)
+WRENCH_RTOL = 1e-9
+
 # Peak rates of one H100 SXM (NVIDIA H100 data sheet): HBM3 bandwidth;
 # float64 on the tensor cores and on the FMA pipes; float32 on the FMA
 # pipes (the kernel uses no TF32).
@@ -551,21 +578,24 @@ def phase_kernel(gen):
     return worst, schur, fleet, loop
 
 
-def cheetah_inputs(batch, seed, device):
-    """mini_cheetah with CR in float64 for ``max_iterations=3``, and
-    ``batch`` q guesses: the example's guess plus 0.01 N(0, 1) noise from
-    ``seed``, q_0 pinned to q_init."""
+def cheetah_inputs(batch, seed, device, iters=3, hills=0):
+    """mini_cheetah (with ``hills`` cylinder hills) with CR in float64 for
+    ``max_iterations=iters``, and ``batch`` q guesses: the example's guess
+    plus 0.01 N(0, 1) noise from ``seed``, q_0 pinned to q_init."""
     import numpy as np
     import torch
 
-    from idto_tpu_torch.examples.registry import load_example
+    from idto_tpu_torch.examples import registry
     from idto_tpu_torch.optimizer.problem import LinearSolverType
 
-    model, _, prob, params, q_guess = load_example(
+    model, _, prob, params, q_guess = registry.load_example(
         "mini_cheetah", dtype=torch.float64, device=device)
+    if hills:
+        model = registry._mini_cheetah(hills=hills).finalize(
+            dtype=torch.float64, device=device)
     params = params.replace(
         linear_solver=LinearSolverType.CYCLIC_REDUCTION,
-        check_convergence=False, max_iterations=3,
+        check_convergence=False, max_iterations=iters,
     )
     rng = np.random.default_rng(seed)
     qg = q_guess.cpu().numpy()[None] + 0.01 * rng.standard_normal(
@@ -1466,6 +1496,332 @@ def phase_options(seed):
     return launches, times
 
 
+PAD_SDF = """<?xml version="1.0"?>
+<sdf version="1.7">
+  <model name="pad">
+    <link name="pad">
+      <inertial><mass>1.0</mass>
+        <inertia><ixx>1e-3</ixx><iyy>1e-3</iyy><izz>1e-3</izz>
+                 <ixy>0</ixy><ixz>0</ixz><iyz>0</iyz></inertia>
+      </inertial>
+      <collision name="pad_hull">
+        <geometry><mesh><uri>pad.obj</uri></mesh></geometry>
+      </collision>
+    </link>
+  </model>
+</sdf>
+"""
+
+
+def pad_corners():
+    import itertools
+
+    import numpy as np
+
+    return np.array([s * np.asarray(PAD_HALF)
+                     for s in itertools.product([-1.0, 1.0], repeat=3)])
+
+
+def pad_model(device, shape, directory):
+    """The pad with its hull loaded from an OBJ through an SDF file
+    ("hull"), or built as a BOX ("box"), over a ground halfspace; or the
+    hull against the cheetah's ground box ("hull_box_ground")."""
+    import numpy as np
+    import torch
+
+    from idto_tpu_torch.examples.registry import _add_ground_box
+    from idto_tpu_torch.models.model import GeomType, JointType, ModelBuilder
+    from idto_tpu_torch.models.sdf import parse_model_file
+
+    if shape.startswith("hull"):
+        with open(os.path.join(directory, "pad.obj"), "w") as f:
+            f.write("\n".join("v " + " ".join(repr(float(c)) for c in v)
+                              for v in pad_corners()) + "\n")
+        with open(os.path.join(directory, "pad.sdf"), "w") as f:
+            f.write(PAD_SDF)
+        b = parse_model_file(os.path.join(directory, "pad.sdf"))
+    else:
+        b = ModelBuilder()
+        b.add_link("pad", "world", JointType.FLOATING, mass=1.0,
+                   inertia=np.eye(3) * 1e-3)
+        b.add_geometry("pad", GeomType.BOX, list(PAD_HALF), name="pad_box")
+    if shape.endswith("box_ground"):
+        _add_ground_box(b, z_top=0.0)
+    else:
+        b.add_geometry("world", GeomType.HALFSPACE, name="ground")
+    model = b.finalize(dtype=torch.float64, device=device)
+    if shape.startswith("hull") and int(model.geoms.types[0]) != int(
+            GeomType.CONVEX):
+        raise AssertionError("geometry: the pad's mesh is not a hull")
+    return model
+
+
+def pad_inputs(batch, seed, device, shape, directory):
+    """The pad, resting 1 mm deep in the ground, slid 5 cm along x in T=20
+    steps of 0.05 s.  Weights: Qq 10 on x, y, z and 1 on the quaternion,
+    Qv 0.1, R 1e-3 (the unactuated floating base: R prices the generalized
+    forces), final weights 10x; no equality constraints; cyclic reduction;
+    q guesses the nominal plus 2 mm N(0, 1) on x, y, z from ``seed``, q_0
+    pinned."""
+    import numpy as np
+    import torch
+
+    from idto_tpu_torch.optimizer.problem import (
+        LinearSolverType,
+        ProblemDefinition,
+        SolverParameters,
+    )
+
+    model = pad_model(device, shape, directory)
+    T, nv = PAD_T, model.nv
+    q0 = np.array([1.0, 0, 0, 0, 0.0, 0.0, PAD_HALF[2] - 1e-3])
+    q1 = q0.copy()
+    q1[4] = 0.05
+    q_nom = q0 + np.linspace(0.0, 1.0, T + 1)[:, None] * (q1 - q0)
+    Qq = np.array([1.0] * 4 + [10.0] * 3)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                               device=device)
+
+    prob = ProblemDefinition(
+        num_steps=T, dt=0.05, q_init=t(q0), v_init=t(np.zeros(nv)),
+        q_nom=t(q_nom), v_nom=t(np.zeros((T + 1, nv))), Qq=t(Qq),
+        Qv=t(np.full(nv, 0.1)), R=t(np.full(nv, 1e-3)), Qf_q=t(10 * Qq),
+        Qf_v=t(np.full(nv, 1.0)))
+    params = SolverParameters(
+        max_iterations=GEOMETRY_ITERS, check_convergence=False,
+        equality_constraints=False,
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+    qg = q_nom[None].repeat(batch, 0)
+    qg[:, 1:, 4:] += 0.002 * np.random.default_rng(seed).standard_normal(
+        (batch, T, 3))
+    return model, prob, params, t(qg)
+
+
+def solve_on(device, inputs, nref=None):
+    """solve_batch of (model, prob, params, qg); the first ``nref``
+    scenarios only when given.  Returns (Solution, Stats, seconds)."""
+    import torch
+
+    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+
+    model, prob, params, qg = inputs
+    if nref is not None:
+        qg = qg[:nref]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol, stats, _ = solve_batch(model, broadcast_problem(prob, qg.shape[0]),
+                                params, qg)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return sol, stats, time.perf_counter() - t0
+
+
+def launch_count(fn):
+    """CUDA kernel launches of one call of fn, from torch.profiler's host
+    events, its device-busy share and its profiled wall ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.key.startswith("cudaLaunchKernel"))
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    top = sorted((e for e in events if e.device_type != DeviceType.CUDA),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    log("profile", "host self time: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.0f} ms ({e.count})"
+        for e in top))
+    return launches, busy_ms / wall_ms, wall_ms
+
+
+def compare_solves(tag, sol, stats, sol_c, stats_c, tol):
+    """Card against the CPU run of the same first scenarios."""
+    import torch
+
+    n = sol_c.q.shape[0]
+    errs = {"q": rel_err(sol.q[:n].cpu(), sol_c.q),
+            "cost": rel_err(stats.cost[:n].cpu(), stats_c.cost),
+            "tau": rel_err(sol.tau[:n].cpu(), sol_c.tau)}
+    same = torch.equal(stats.solver_flag[:n].cpu(), stats_c.solver_flag)
+    log("geometry", f"{tag}: card vs CPU, first {n} scenarios: " + ", ".join(
+        f"{k} {e:.3e}" for k, e in errs.items())
+        + f", flags {'equal' if same else 'DIFFER'} (tol {tol:g})")
+    if not (max(errs.values()) <= tol and same):
+        raise AssertionError(f"geometry: {tag} disagrees with the CPU")
+    return errs
+
+
+def phase_geometry(seed):
+    """The geometry phase on the card; returns the kernel's launches by
+    path and the informational numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from idto_tpu_torch.contact.force import ContactParams
+    from idto_tpu_torch.ops import cr_kernel
+    from idto_tpu_torch.soa import contact as soa_contact
+    from idto_tpu_torch.soa.partials import _jac_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    # The kernel at the shapes of this phase's launches (R = 1, B = 256):
+    # the cheetah's blocks of 19 and the pad's of 7.
+    for k in (CHEETAH_K, PAD_K):
+        check_kernel(gen, CHEETAH_N, k, GEOMETRY_BATCH, 1, torch.float64)
+    launches, numbers = {}, {}
+
+    # (a) the cheetah with hills, at full width.
+    inputs = cheetah_inputs(GEOMETRY_BATCH, seed, "cuda",
+                            iters=GEOMETRY_ITERS, hills=HILLS)
+    model = inputs[0]
+    pairs = [(int(model.geoms.types[a]), int(model.geoms.types[b]))
+             for a, b in model.geoms.pairs]
+    torch.cuda.reset_peak_memory_stats()
+    cr_kernel.launches = 0
+    sol, stats, seconds = solve_on("cuda", inputs)
+    launches["hills"] = cr_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    failed = check_solution(sol, stats, "hills")
+    # One warm iteration of the hills and of the plain cheetah, in turns,
+    # then one of each under the profiler.
+    plain = cheetah_inputs(GEOMETRY_BATCH, seed, "cuda", iters=1)
+    hills_one = inputs[:2] + (inputs[2].replace(max_iterations=1),
+                              inputs[3])
+    warm = {"hills": [], "plain": []}
+    for tag in ("plain", "hills", "hills", "plain"):
+        warm[tag].append(1e3 * solve_on(
+            "cuda", hills_one if tag == "hills" else plain)[2])
+    prof = {tag: launch_count(lambda: solve_on("cuda", x)) for tag, x in (
+        ("hills", hills_one), ("plain", plain))}
+    numbers.update(
+        hills_iteration_ms=min(warm["hills"]),
+        plain_iteration_ms=min(warm["plain"]),
+        hills_first_call_s=seconds,
+        hills_launches_per_iteration=prof["hills"][0],
+        plain_launches_per_iteration=prof["plain"][0],
+        hills_device_busy_share=prof["hills"][1],
+        plain_device_busy_share=prof["plain"][1], hills_peak_gib=peak)
+    log("geometry", f"(a) mini_cheetah + {HILLS} hills ({len(pairs)} pairs, "
+                    f"{pairs.count((1, 3))} box-cylinder) B={GEOMETRY_BATCH} "
+                    f"T={inputs[1].num_steps} float64 CR, {GEOMETRY_ITERS} "
+                    f"iterations: {seconds:.2f} s (first call); one warm "
+                    f"iteration " + " / ".join(
+                        f"{x:.1f}" for x in warm["hills"])
+                    + " ms against the plain cheetah's " + " / ".join(
+                        f"{x:.1f}" for x in warm["plain"])
+                    + f" ms; profiled: {prof['hills'][0]} CUDA launches "
+                    f"against {prof['plain'][0]}, device busy "
+                    f"{100 * prof['hills'][1]:.1f}% against "
+                    f"{100 * prof['plain'][1]:.1f}% (profiled walls "
+                    f"{prof['hills'][2]:.0f} / {prof['plain'][2]:.0f} ms); "
+                    f"peak {peak:.2f} GiB; kernel launches "
+                    f"{launches['hills']}; FACTORIZATION_FAILED {failed}; "
+                    f"mean cost {stats.cost[:, 0].mean().item():.6e} -> "
+                    f"{stats.cost[:, -1].mean().item():.6e}")
+    if launches["hills"] != GEOMETRY_ITERS:
+        raise AssertionError("geometry: the hills solve missed the kernel")
+    ref = cheetah_inputs(GEOMETRY_BATCH, seed, "cpu", iters=GEOMETRY_ITERS,
+                         hills=HILLS)
+    sol_c, stats_c, sec_c = solve_on("cpu", ref, GEOMETRY_NREF)
+    log("geometry", f"(a) CPU reference B={GEOMETRY_NREF}: {sec_c:.2f} s")
+    numbers["hills_vs_cpu"] = compare_solves("(a) hills", sol, stats, sol_c,
+                                             stats_c, GEOMETRY_RTOL)
+
+    # (b) the hull pad, loaded from a mesh through an SDF file.
+    with tempfile.TemporaryDirectory() as directory:
+        inputs = pad_inputs(GEOMETRY_BATCH, seed, "cuda", "hull", directory)
+        cr_kernel.launches = 0
+        sol, stats, seconds = solve_on("cuda", inputs)
+        launches["hull_pad"] = cr_kernel.launches
+        check_solution(sol, stats, "hull pad")
+        box = pad_inputs(GEOMETRY_BATCH, seed, "cuda", "box", directory)
+        sol_b, stats_b, sec_b = solve_on("cuda", box)
+        ref = pad_inputs(GEOMETRY_BATCH, seed, "cpu", "hull", directory)
+        sol_c, stats_c, sec_c = solve_on("cpu", ref, GEOMETRY_NREF)
+    numbers["hull_pad_iteration_ms"] = 1e3 * seconds / GEOMETRY_ITERS
+    e_box = {"q": rel_err(sol.q, sol_b.q),
+             "cost": rel_err(stats.cost, stats_b.cost)}
+    numbers["hull_vs_box"] = e_box
+    log("geometry", f"(b) hull pad (OBJ <mesh> in SDF -> CONVEX, over a "
+                    f"halfspace) B={GEOMETRY_BATCH} T={PAD_T} float64 CR, "
+                    f"{GEOMETRY_ITERS} iterations: {seconds:.2f} s (first "
+                    f"call); the BOX pad {sec_b:.2f} s; kernel launches "
+                    f"{launches['hull_pad']}; mean cost "
+                    f"{stats.cost[:, 0].mean().item():.6e} -> "
+                    f"{stats.cost[:, -1].mean().item():.6e}; hull vs box on "
+                    f"the card: q {e_box['q']:.3e}, cost {e_box['cost']:.3e} "
+                    f"(tol {BOX_HULL_RTOL:g}); CPU reference "
+                    f"B={GEOMETRY_NREF} {sec_c:.2f} s")
+    if launches["hull_pad"] != GEOMETRY_ITERS:
+        raise AssertionError("geometry: the pad's solve missed the kernel")
+    if not max(e_box.values()) <= BOX_HULL_RTOL:
+        raise AssertionError("geometry: the hull pad is not the box pad")
+    numbers["hull_pad_vs_cpu"] = compare_solves(
+        "(b) hull pad", sol, stats, sol_c, stats_c, GEOMETRY_RTOL)
+
+    # (c) one evaluation of the wrenches and of their exact q partials on a
+    # CONVEX-BOX pair, N instances of the pad near the cheetah's ground box.
+    rng = np.random.default_rng(seed + 4)
+    quat = rng.standard_normal((WRENCH_N, 4)) * [1.0, 0.1, 0.1, 0.1]
+    q = np.concatenate([quat / np.linalg.norm(quat, axis=1, keepdims=True),
+                        rng.uniform(-0.05, 0.05, (WRENCH_N, 2)),
+                        rng.uniform(-0.01, 0.03, (WRENCH_N, 1))], 1).T
+    v = 0.2 * rng.standard_normal((6, WRENCH_N))
+    contact = ContactParams()
+    out = {}
+    for device, n in (("cuda", WRENCH_N), ("cpu", WRENCH_NREF)):
+        with tempfile.TemporaryDirectory() as directory:
+            model = pad_model(device, "hull_box_ground", directory)
+        qd, vd = (torch.as_tensor(x[:, :n], device=device) for x in (q, v))
+
+        def wrenches(x):
+            return soa_contact.contact_wrenches(model, x, vd, contact)
+
+        def partials():
+            return _jac_rows(wrenches, qd, model.nq)
+
+        if device == "cuda":
+            ms = cuda_time_ms(lambda: wrenches(qd), 1)
+            jac_ms = cuda_time_ms(partials, 1)
+            n_launch, busy, _ = launch_count(lambda: wrenches(qd))
+            numbers.update(convex_box_wrenches_ms=ms,
+                           convex_box_partials_ms=jac_ms,
+                           convex_box_wrench_launches=n_launch,
+                           convex_box_device_busy_share=busy)
+            log("geometry", f"(c) hull pad vs ground box (CONVEX-BOX) "
+                            f"N={n}: contact_wrenches {ms:.1f} ms, "
+                            f"{n_launch} CUDA launches, device busy "
+                            f"{100 * busy:.1f}%; exact q partials "
+                            f"({model.nq} tangents) {jac_ms:.1f} ms")
+        out[device] = [x[..., :WRENCH_NREF].cpu() for x in
+                       (*wrenches(qd), *partials())]
+    names = ("torques", "forces", "d_torques", "d_forces")
+    errs = {name: rel_err(x, r)
+            for name, x, r in zip(names, out["cuda"], out["cpu"])}
+    numbers["convex_box_vs_cpu"] = errs
+    log("geometry", f"(c) card vs CPU, first {WRENCH_NREF} instances: "
+                    + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                    + f" (tol {WRENCH_RTOL:g})")
+    if float(out["cpu"][1].abs().max()) <= 1.0:
+        raise AssertionError("geometry: the pad is not in contact")
+    if not max(errs.values()) <= WRENCH_RTOL:
+        raise AssertionError("geometry: CONVEX-BOX wrenches disagree")
+    return launches, numbers
+
+
 def phase_times(seed, reps):
     """Solve-iteration and kernel times; returns the kernel's numbers at
     the main path's batch for the result line."""
@@ -1564,6 +1920,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random systems and q guesses")
+    ap.add_argument("--only", default=None, metavar="PHASE",
+                    help="after the device and build phases run this one "
+                         "phase (kernel, slice, constraints, mpc, fleet, "
+                         "closed_loop, options, geometry, times) and stop "
+                         "without the result lines")
     args = ap.parse_args(argv)
 
     name, smi = phase_device()
@@ -1571,6 +1932,20 @@ def main(argv=None):
 
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    if args.only:
+        phase = {
+            "kernel": lambda: phase_kernel(gen),
+            "slice": lambda: phase_slice(SLICE_BATCH, args.seed),
+            "constraints": lambda: phase_constraints(SLICE_BATCH, args.seed),
+            "mpc": phase_mpc, "fleet": lambda: phase_fleet(args.seed),
+            "closed_loop": phase_closed_loop,
+            "options": lambda: phase_options(args.seed),
+            "geometry": lambda: phase_geometry(args.seed),
+            "times": lambda: phase_times(args.seed, REPS),
+        }[args.only]
+        phase()
+        log("only", f"{args.only} passed; no result lines")
+        return
     max_abs, schur, fleet_shapes, loop_shapes = phase_kernel(gen)
     by_path = {"cheetah_slice": phase_slice(SLICE_BATCH, args.seed)}
     by_path["hopper_constraints"] = phase_constraints(SLICE_BATCH, args.seed)
@@ -1580,6 +1955,8 @@ def main(argv=None):
         phase_closed_loop()
     options_launches, options_times = phase_options(args.seed)
     by_path.update(options_launches)
+    geometry_launches, geometry_numbers = phase_geometry(args.seed)
+    by_path.update(geometry_launches)
     times = phase_times(args.seed, REPS)
 
     print(smi, flush=True)
@@ -1605,6 +1982,9 @@ def main(argv=None):
         "closed_loop_sim_period_ms": loop_period_ms,
         # The options phase (float64, B=1 unless named).
         "options_ms": options_times,
+        # The geometry phase: the hills and the hull pad at B=256, the
+        # CONVEX-BOX wrenches at N=5120 (float64).
+        "geometry": geometry_numbers,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

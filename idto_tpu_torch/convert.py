@@ -50,13 +50,12 @@ def tensor(x, dtype=torch.float64, device="cuda"):
 
 def model(m, dtype=torch.float64, device="cuda") -> Model:
     g = m.geoms
-    if getattr(g, "verts", None) is not None:
-        raise NotImplementedError("CONVEX geometry is not ported yet")
     geoms = CollisionGeoms(
         types=tuple(g.types), bodies=tuple(g.bodies), pairs=tuple(g.pairs),
         names=tuple(g.names),
         R=tensor(g.R, dtype, device), p=tensor(g.p, dtype, device),
         params=tensor(g.params, dtype, device),
+        verts=(None if g.verts is None else tensor(g.verts, dtype, device)),
     )
     return Model(
         geoms=geoms,

@@ -4,7 +4,7 @@ Usage:
     python -m idto_tpu_torch.examples.run spinner [--test] [--mpc] [--verbose]
         [--stats-csv F] [--contour-csv F] [--lineplot-csv F]
         [--quadratic-csv F] [--linesearch-csv F] [--print-debug-data]
-        [--profile]
+        [--profile] [--live [PORT]] [--playback OUT.html]
     python -m idto_tpu_torch.examples.run --list
 
 The solve runs on the GPU in float64; ``--device cpu`` is the only way to
@@ -53,6 +53,18 @@ def main(argv=None):
                         help="print the host profiler table")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where the tensors live (default: the GPU)")
+    parser.add_argument("--live", default=None, type=int, nargs="?",
+                        const=8765, metavar="PORT",
+                        help="with --mpc: serve a live WebGL viewer on "
+                             "localhost:PORT (default 8765) and stream every "
+                             "replan's planned trajectory to it over a "
+                             "websocket")
+    parser.add_argument("--playback", default=None, metavar="OUT.html",
+                        help="export the solved trajectory as a standalone "
+                             "WebGL playback HTML; the YAML's "
+                             "play_initial_guess / play_target_trajectory "
+                             "flags add <name>_{guess,target}.html next to "
+                             "OUT.html")
     args = parser.parse_args(argv)
 
     from idto_tpu_torch.examples.registry import example_names, load_example
@@ -78,8 +90,23 @@ def main(argv=None):
 
         sim_model, sim_contact = load_sim_plant(args.example, params,
                                                 device=args.device)
-        result = run_mpc(model, cfg, prob, params, q_guess,
-                         sim_model=sim_model, sim_contact=sim_contact)
+        viewer = on_replan = None
+        if args.live is not None:
+            from idto_tpu_torch.utils.liveview import LiveViewer
+
+            viewer = LiveViewer(model, dt=prob.dt, port=args.live)
+            print(f"live viewer: http://localhost:{viewer.port}")
+
+            def on_replan(t_now, q_plan):
+                viewer.publish(q_plan)
+
+        try:
+            result = run_mpc(model, cfg, prob, params, q_guess,
+                             sim_model=sim_model, sim_contact=sim_contact,
+                             on_replan=on_replan)
+        finally:
+            if viewer is not None:
+                viewer.close()
         print(
             f"MPC: {result.num_solves} solves, "
             f"mean solve time {1e3 * result.mean_solve_time:.2f} ms "
@@ -196,6 +223,24 @@ def main(argv=None):
         for r in replay_iterations(model, prob, params, q_guess, iters):
             print(f"iter {r.k}:")
             print_condition_numbers(r)
+    if args.playback:
+        import os
+
+        from idto_tpu_torch.utils.playback import export_html
+
+        base, ext = os.path.splitext(args.playback)
+        out = export_html(model, sol.q, prob.dt, args.playback,
+                          title=f"{args.example} (optimal)")
+        print(f"playback written to {out}")
+        extras = []
+        if cfg.play_initial_guess:
+            extras.append((q_guess, "guess"))
+        if cfg.play_target_trajectory:
+            extras.append((prob.q_nom, "target"))
+        for qs, tag in extras:
+            out = export_html(model, qs, prob.dt, f"{base}_{tag}{ext}",
+                              title=f"{args.example} ({tag})")
+            print(f"playback written to {out}")
     if args.profile:
         from idto_tpu_torch.utils.profiler import table_of_averages
 

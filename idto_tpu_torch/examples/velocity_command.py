@@ -11,7 +11,7 @@ simulated replan period tracking the new plan, with the command a tensor
 Usage:
     python -m idto_tpu_torch.examples.velocity_command mini_cheetah \\
         --schedule "0: 0.3 0 0; 2: 0.3 0 0.5; 4: 0 0 0" --sim-time 6 \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--live [PORT]] [--playback OUT.html]
 
 Each schedule entry is "t_start: vx vy wz" (body-frame m/s, rad/s).  The
 solve runs on the GPU in float64; ``--device cpu`` is the only way to run
@@ -64,6 +64,13 @@ def main(argv=None):
                         help="override the YAML sim_time")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where the tensors live (default: the GPU)")
+    parser.add_argument("--live", default=None, type=int, nargs="?",
+                        const=8765, metavar="PORT",
+                        help="serve a live WebGL viewer on localhost:PORT "
+                             "(default 8765) and stream every replan's plan")
+    parser.add_argument("--playback", default=None, metavar="OUT.html",
+                        help="export the simulated run as a standalone WebGL "
+                             "playback HTML (the sim log at ~50 frames/s)")
     args = parser.parse_args(argv)
     schedule = parse_schedule(args.schedule)
 
@@ -104,6 +111,13 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    viewer = None
+    if args.live is not None:
+        from idto_tpu_torch.utils.liveview import LiveViewer
+
+        viewer = LiveViewer(model, dt=prob.dt, port=args.live)
+        print(f"live viewer: http://localhost:{viewer.port}")
+
     carry, _ = mpc_initialize(model, probs, params, q_guess[None])
     q, v = prob.q_init[None], prob.v_init[None]
     q_log = [q.cpu().numpy()]
@@ -115,10 +129,12 @@ def main(argv=None):
         x0 = torch.cat([q, v], dim=1)
         sync()
         t0 = time.perf_counter()
-        carry, _ = mpc_step_velocity_command(model, probs, mpc_params, carry,
-                                             x0, t_now, cmd)
+        carry, sol = mpc_step_velocity_command(model, probs, mpc_params,
+                                               carry, x0, t_now, cmd)
         sync()
         solve_times.append(time.perf_counter() - t0)
+        if viewer is not None:
+            viewer.publish(sol.q[0])
         q, v, log = simulate_segment(sim_model, sim_contact, h, substeps,
                                      carry.stored, Kp, Kd, q, v, t_now,
                                      cfg.feed_forward)
@@ -131,6 +147,16 @@ def main(argv=None):
     print(f"[{args.example}] {num_replans} replans, "
           f"mean solve {mean_ms:.2f} ms ({1e3 / max(mean_ms, 1e-9):.1f} Hz)")
     print(f"base displacement: dx={base_xy[0]:+.3f} m dy={base_xy[1]:+.3f} m")
+    if viewer is not None:
+        viewer.close()
+    if args.playback:
+        from idto_tpu_torch.utils.playback import export_html
+
+        # Subsample the simulator's log to ~50 frames a second.
+        stride = max(1, int(round(0.02 / h)))
+        out = export_html(model, qs[::stride], h * stride, args.playback,
+                          title=f"{args.example} velocity-command MPC")
+        print(f"playback written to {out}")
     return 0
 
 

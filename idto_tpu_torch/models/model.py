@@ -8,8 +8,8 @@ are the JAX package's: link ``i`` is the child of joint ``i``,
 topological order; floating joints use ``q = [qw, qx, qy, qz, x, y, z]``
 and ``v = [w_WB_W, v_WB_W]``.
 
-Only primitive collision geometry is supported; CONVEX hulls are not
-ported yet.
+Collision geometry: the primitives and CONVEX hulls of vertex sets
+(``models/mesh.py`` reduces a mesh file to one).
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ class GeomType(enum.IntEnum):
     CAPSULE = 2
     CYLINDER = 3
     HALFSPACE = 4  # plane through origin of geom frame, +z outward
-    CONVEX = 5  # convex hull of a vertex set (not ported)
+    CONVEX = 5  # convex hull of a vertex set (CollisionGeoms.verts)
 
 
 @tensor_dataclass
@@ -60,7 +60,11 @@ class CollisionGeoms:
     """Flat collision geometry table.  ``bodies`` holds the link index of
     each geometry (-1 = world); ``params`` packs up to 3 shape numbers
     (sphere [r], box half-extents, capsule/cylinder [r, half_len]);
-    ``pairs`` is the static candidate pair list enumerated at build time."""
+    ``pairs`` is the static candidate pair list enumerated at build time.
+    ``verts`` (ng, VMAX, 3) holds each CONVEX geometry's hull vertices in
+    its geometry frame, padded by repeating its first vertex (which leaves
+    the hull and every support value unchanged); rows of other geometries
+    are zero, and ``verts`` is None when no geometry is CONVEX."""
 
     types: tuple = ()
     bodies: tuple = ()
@@ -69,6 +73,7 @@ class CollisionGeoms:
     R: Any = None  # (ng, 3, 3) geom pose in body frame
     p: Any = None  # (ng, 3)
     params: Any = None  # (ng, 3)
+    verts: Any = None  # (ng, VMAX, 3) or None
 
     @property
     def num_geoms(self) -> int:
@@ -150,6 +155,7 @@ class ModelBuilder:
         self._geom_R: list[np.ndarray] = []
         self._geom_p: list[np.ndarray] = []
         self._geom_params: list[np.ndarray] = []
+        self._geom_verts: list[Optional[np.ndarray]] = []
         self._geom_names: list[str] = []
         self._pair_filter: list[tuple] = []
 
@@ -230,11 +236,23 @@ class ModelBuilder:
         R: Optional[np.ndarray] = None,
         p: Sequence[float] = (0.0, 0.0, 0.0),
         name: str = "",
+        verts: Optional[np.ndarray] = None,
     ) -> int:
+        """``verts`` (m, 3) is required for GeomType.CONVEX (the convex hull
+        of the points, in the geometry frame) and ignored otherwise; the
+        URDF and SDF parsers pass a hull in the ``params`` slot instead
+        (``models/mesh.py::mesh_to_convex``'s return), which is read the
+        same way."""
         idx = len(self._geom_types)
         gtype = GeomType(gtype)
         if gtype == GeomType.CONVEX:
-            raise NotImplementedError("CONVEX geometry is not ported yet")
+            if verts is None:
+                verts, params = params, ()
+            verts = np.asarray(verts, dtype=np.float64)
+            if verts.ndim != 2 or verts.shape[1] != 3:
+                raise ValueError("CONVEX geometry requires verts (m, 3)")
+        else:
+            verts = None
         self._geom_types.append(gtype)
         self._geom_bodies.append(self.link_index(body))
         self._geom_R.append(np.eye(3) if R is None else np.asarray(R))
@@ -242,6 +260,7 @@ class ModelBuilder:
         prm = np.zeros(3)
         prm[: len(params)] = params
         self._geom_params.append(prm)
+        self._geom_verts.append(verts)
         self._geom_names.append(name or f"geom_{idx}")
         return idx
 
@@ -326,6 +345,15 @@ class ModelBuilder:
             if self._geom_bodies[i] != self._geom_bodies[j]
             and (i, j) not in filtered
         )
+        hulls = [v for v in self._geom_verts if v is not None]
+        verts = None
+        if hulls:
+            stacked = np.zeros((ng, max(v.shape[0] for v in hulls), 3))
+            for i, v in enumerate(self._geom_verts):
+                if v is not None:
+                    stacked[i, : v.shape[0]] = v
+                    stacked[i, v.shape[0]:] = v[0]
+            verts = t(stacked)
         return CollisionGeoms(
             types=tuple(int(g) for g in self._geom_types),
             bodies=tuple(self._geom_bodies),
@@ -334,4 +362,5 @@ class ModelBuilder:
             R=t(np.stack(self._geom_R)),
             p=t(np.stack(self._geom_p)),
             params=t(np.stack(self._geom_params)),
+            verts=verts,
         )

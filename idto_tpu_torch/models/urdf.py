@@ -3,10 +3,11 @@
 
 Supported: fixed / revolute / continuous / prismatic / planar / floating
 joints (plus an implicit floating joint for root links, Drake's free-body
-convention), inertials re-expressed in the link frame, primitive collision
-geometry (sphere, box, capsule, cylinder), transmissions as actuators, and
-``drake:collision_filter_group`` exclusions.  Mesh collisions are not
-ported and raise.
+convention), inertials re-expressed in the link frame, collision geometry
+(sphere, box, capsule, cylinder, and ``<mesh>`` files reduced by
+``models/mesh.py::mesh_to_collision`` to a convex hull or a fitted
+primitive), transmissions as actuators, and
+``drake:collision_filter_group`` exclusions.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 
+from idto_tpu_torch.models.mesh import mesh_to_collision
 from idto_tpu_torch.models.model import GeomType, JointType, ModelBuilder
 from idto_tpu_torch.models.rotations import make_frame_from_z, rpy_to_rot_np
 
@@ -63,20 +65,37 @@ def _parse_inertial(link: ET.Element):
     return mass, com, R @ I @ R.T
 
 
-def _parse_geometry(geom_el: ET.Element):
-    """(GeomType, params) of a primitive, or None for no geometry."""
+def _parse_geometry(geom_el: ET.Element, mesh_dir: Optional[str] = None):
+    """(GeomType, params, R_extra, p_extra), or None for no geometry.
+
+    R_extra/p_extra compose inside the collision origin: the identity for
+    primitives, the fitted primitive's pose for a mesh.  A ``<mesh>``
+    resolves against ``mesh_dir``; with no ``mesh_dir``, no filename or no
+    such file it gives no geometry.  A CONVEX mesh carries its hull
+    vertices in the params slot."""
+    eye, zero = np.eye(3), np.zeros(3)
     for child in geom_el:
         tag = child.tag.rsplit("}", 1)[-1]
         if tag == "sphere":
-            return GeomType.SPHERE, [float(child.get("radius"))]
+            return GeomType.SPHERE, [float(child.get("radius"))], eye, zero
         if tag == "box":
-            return GeomType.BOX, list(_floats(child.get("size")) / 2.0)
+            return GeomType.BOX, list(_floats(child.get("size")) / 2.0), \
+                eye, zero
         if tag in ("capsule", "cylinder"):
             gt = GeomType.CAPSULE if tag == "capsule" else GeomType.CYLINDER
             return gt, [float(child.get("radius")),
-                        float(child.get("length")) / 2.0]
+                        float(child.get("length")) / 2.0], eye, zero
         if tag == "mesh":
-            raise NotImplementedError("mesh collision geometry is not ported")
+            fname = child.get("filename")
+            if mesh_dir is None or not fname:
+                return None
+            scale_attr = child.get("scale")
+            scale = _floats(scale_attr) if scale_attr else None
+            path = fname if os.path.isabs(fname) else os.path.join(
+                mesh_dir, fname)
+            if not os.path.exists(path):
+                return None
+            return mesh_to_collision(path, scale=scale)
     return None
 
 
@@ -89,9 +108,12 @@ def parse_urdf_string(
     R_base=None,
     p_base=None,
     gravity_enabled: bool = True,
+    mesh_dir: Optional[str] = None,
 ) -> ModelBuilder:
     """Parse URDF text into ``builder`` (a new ModelBuilder if None;
-    ``.finalize()`` gives the Model).
+    ``.finalize()`` gives the Model).  ``mesh_dir`` resolves relative
+    ``<mesh filename>`` references (``parse_urdf_file`` passes the file's
+    directory); without it mesh collisions are skipped.
 
     ``floating_base=None`` gives root links without a joint to the world a
     floating joint; False welds them.  ``prefix`` goes before every link,
@@ -175,13 +197,13 @@ def parse_urdf_string(
             )
 
         for ci, col in enumerate(link_el.findall("collision")):
-            parsed = _parse_geometry(col.find("geometry"))
+            parsed = _parse_geometry(col.find("geometry"), mesh_dir)
             if parsed is None:
                 continue
-            gtype, params = parsed
+            gtype, params, R_g, p_g = parsed
             R, p = _origin(col.find("origin"))
             builder.add_geometry(
-                pfx(name), gtype, params, R=R, p=p,
+                pfx(name), gtype, params, R=R @ R_g, p=p + R @ p_g,
                 name=pfx(col.get("name", f"{name}_collision_{ci}")),
             )
 
@@ -232,5 +254,7 @@ def _geom_names_of_link(builder: ModelBuilder, link: str) -> list[str]:
 
 
 def parse_urdf_file(path, **kwargs) -> ModelBuilder:
+    kwargs.setdefault("mesh_dir", os.path.dirname(os.path.abspath(
+        os.fspath(path))))
     with open(os.fspath(path)) as f:
         return parse_urdf_string(f.read(), **kwargs)

@@ -12,8 +12,10 @@ The loop is a Python ``while``: its ``any(active)`` test reads one flag
 from the device per iteration (a host sync).  The degraded-solve rescue
 branches on the host too.  Every solver option of the JAX package is
 honoured: finite-difference partials, the dense and exact-Hessian solves,
-the dense cross-check, the verbose table and the iteration timer (the last
-two for one scenario, as in the JAX package); the linesearch method is
+the dense cross-check, the verbose table (one row a scenario an iteration,
+in scenario order, as the JAX package's vmapped table prints them) and the
+iteration timer (each scenario's ``stats.time`` row holds the times of the
+batch iterations it ran); the linesearch method is
 ``optimizer/linesearch.py``.
 """
 from __future__ import annotations
@@ -51,20 +53,25 @@ from idto_tpu_torch.soa.kinematics import normalize_quaternions
 from idto_tpu_torch.utils.consts import index
 
 
-def check_supported(model: Model, params: SolverParameters, B: int):
-    """Raise for what the port does not solve: a model with a contact pair
-    that has no SoA kernel, or a per-iteration host printer or timer over several
-    scenarios (one table or one clock for a batch has no meaning; the JAX
-    package's are single-scenario too)."""
+def check_supported(model: Model):
+    """Raise for a model with a contact pair that has no SoA kernel (only a
+    halfspace against a halfspace, where the JAX package raises too)."""
     if not soa_contact.supports_soa(model):
         raise NotImplementedError(
             "a contact pair of this model has no SoA kernel in the port"
         )
-    if B > 1 and (params.verbose or params.record_iteration_times):
-        raise ValueError(
-            "verbose and record_iteration_times are single-scenario "
-            f"options; this solve has {B} scenarios"
-        )
+
+
+def print_rows(active, k, cost, merit, Delta, rho, dq_norm, g_norm, h_norm):
+    """The verbose table's rows of one batch iteration: one row for each
+    active scenario, in scenario order (one host read for the batch).  The
+    header comes before the first row of iterations 0, 50, 100, ..., once
+    for the batch."""
+    cols = torch.stack([x.to(torch.float64) for x in (
+        k, cost, merit, Delta, rho, dq_norm, g_norm, h_norm)], dim=1)
+    rows = cols[active].cpu().tolist()
+    for i, r in enumerate(rows):
+        _print_iter_row(int(r[0]), *r[1:], header=i == 0)
 
 
 def _mask(active, new, old):
@@ -171,7 +178,7 @@ def solve_trust_region_batched(
     axis (or are shared), q_guesses is (B, T+1, nq).  Returns batched
     (Solution, Stats, WarmStart)."""
     B = q_guesses.shape[0]
-    check_supported(model, params, B)
+    check_supported(model)
     dtype, device = q_guesses.dtype, q_guesses.device
     K = params.max_iterations
     Delta = torch.as_tensor(
@@ -182,7 +189,7 @@ def solve_trust_region_batched(
     eps_guard = 10 * torch.finfo(dtype).eps / probs.dt / probs.dt
     iters = torch.arange(K, device=device)
 
-    def body(s: _LoopState) -> _LoopState:
+    def body(s: _LoopState, active) -> _LoopState:
         prep = _prepare_batched(model, probs, params, s.q, s.D)
         prep = _rescue_degraded_solves(params, prep)
         dq_scaled, dq, boundary_active = _dogleg(prep, s.Delta)
@@ -232,10 +239,9 @@ def solve_trust_region_batched(
         )
         if params.record_iteration_times:
             itimer.mark()
-        if params.verbose:  # one scenario (check_supported); host reads
-            _print_iter_row(s.k[0], prep.cost[0], prep.merit[0], s.Delta[0],
-                            rho[0], dq_norm[0], _bnorm(prep.g_merit)[0],
-                            _bnorm(prep.h)[0])
+        if params.verbose:
+            print_rows(active, s.k, prep.cost, prep.merit, s.Delta, rho,
+                       dq_norm, _bnorm(prep.g_merit), _bnorm(prep.h))
 
         # ---- convergence (accepted steps only) ----
         reason = torch.zeros_like(s.reason)
@@ -309,7 +315,7 @@ def solve_trust_region_batched(
         active = (s.k < K) & ~s.done
         if not bool(torch.any(active)):  # host sync once per iteration
             break
-        s = _mask(active, body(s), s)
+        s = _mask(active, body(s, active), s)
 
     tau, v = rollout.generalized_forces(model, probs, params.contact, s.q)
     def fl(f):

@@ -7,7 +7,8 @@ each one.  On the GPU each call records a CUDA event on the current stream
 and nothing waits for it inside the loop; :func:`collect` reads the events
 once, after the solve.  On the CPU they read ``time.perf_counter``.  The
 first duration runs from :func:`reset`, each later one from the previous
-mark.  One scenario only: a batched solve has one clock for all.
+mark.  A batched solve has one clock for all its scenarios; :func:`attach`
+gives each scenario the times of the batch iterations it ran.
 """
 from __future__ import annotations
 
@@ -57,9 +58,10 @@ def collect() -> List[float]:
 
 
 def attach(stats):
-    """``stats`` with its ``time`` row filled from :func:`collect` (NaN
-    past the iterations timed); ``time`` may lead with a scenario axis of
-    one."""
+    """``stats`` with its ``time`` filled from :func:`collect`: entry k of
+    a scenario's row is the time of batch iteration k, for each k below
+    that scenario's ``num_iters``, and NaN past them.  ``time`` is
+    (max_iters,) or (B, max_iters) with ``num_iters`` () or (B,)."""
     times = collect()
     if not times:
         return stats
@@ -67,5 +69,8 @@ def attach(stats):
     row = np.full(t.shape[-1], np.nan)
     n = min(len(times), row.size)
     row[:n] = times[:n]
-    return stats.replace(time=torch.as_tensor(
-        row, dtype=t.dtype, device=t.device).expand(t.shape).clone())
+    row = torch.as_tensor(row, dtype=t.dtype, device=t.device)
+    ran = (torch.arange(t.shape[-1], device=t.device)
+           < stats.num_iters.to(t.device)[..., None])
+    return stats.replace(time=torch.where(ran, row, torch.full_like(row,
+                                                                    np.nan)))

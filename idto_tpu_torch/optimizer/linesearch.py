@@ -175,7 +175,7 @@ def solve_linesearch(model, probs, params: SolverParameters, q_guesses):
     from idto_tpu_torch.optimizer.batched import _empty_stats, check_supported
 
     B = q_guesses.shape[0]
-    check_supported(model, params, B)
+    check_supported(model)
     dtype, device = q_guesses.dtype, q_guesses.device
     K = params.max_iterations
     max_ls = params.max_linesearch_iterations

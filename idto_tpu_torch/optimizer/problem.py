@@ -110,8 +110,8 @@ class SolverParameters:
     # super-rows, beyond that the hybrid: level-wise down to 64 rows, then
     # the kernel on the tail.
     cr_use_pallas: Optional[bool] = None
-    # Time each iteration into Stats.time (optimizer/itimer.py).  One
-    # scenario only, as the verbose table.
+    # Time each iteration into Stats.time (optimizer/itimer.py): in a batch,
+    # each scenario's row holds the batch iterations it ran.
     record_iteration_times: bool = False
 
     def replace(self, **updates):

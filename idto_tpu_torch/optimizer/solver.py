@@ -457,11 +457,12 @@ def _dogleg(prep: _Prepared, Delta):
     return dq_scaled, prep.D * dq_scaled, boundary_active
 
 
-def _print_iter_row(k, cost, merit, Delta, rho, dq_norm, g_norm, h_norm):
-    """One row of the verbose table; the header is printed before row 0
-    and every 50 rows."""
+def _print_iter_row(k, cost, merit, Delta, rho, dq_norm, g_norm, h_norm,
+                    header=True):
+    """One row of the verbose table; with ``header`` the header is printed
+    before rows 0, 50, 100, ..."""
     k = int(k)
-    if k % 50 == 0:
+    if header and k % 50 == 0:
         print(
             f"{'iter':>5} | {'cost':>12} | {'merit':>12} | {'Delta':>9} | "
             f"{'rho':>9} | {'||dq||':>9} | {'||g||':>9} | {'||h||':>9}"

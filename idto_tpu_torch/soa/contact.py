@@ -2,12 +2,14 @@
 instance axis trailing (counterpart of ``idto_tpu/soa/contact.py``).
 
 Pair kernels: sphere vs point-queryable shape (sphere, box, capsule,
-cylinder, halfspace), box vs box (14 candidate points each way plus 144
-edge pairs), capsule vs capsule (closest points of the two axis segments)
-and capsule vs box, cylinder or halfspace (a 48-step ternary search along
-the capsule's axis, then the sphere query at the minimizer).  Convex hulls
-and the generic box/cylinder pairs are not ported; ``supports_soa`` says
-whether a model's pair set is covered.
+cylinder, halfspace, convex hull), box vs box (14 candidate points each
+way plus 144 edge pairs), capsule vs capsule (closest points of the two
+axis segments), capsule vs box, cylinder, halfspace or hull (a 48-step
+ternary search along the capsule's axis, then the sphere query at the
+minimizer), and the generic pairs of box, cylinder and hull against each
+other or a halfspace (``soa/convex.py``).  Every pair but a halfspace
+against a halfspace has a kernel; ``supports_soa`` says whether a model's
+pair set is covered.
 
 Clamps are written as ``torch.minimum``/``torch.maximum`` against tensors
 because their derivative splits evenly at ties, as ``jnp.clip`` and
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from idto_tpu_torch.models.model import GeomType, Model
-from idto_tpu_torch.soa import mat3
+from idto_tpu_torch.soa import convex, mat3
 from idto_tpu_torch.soa.kinematics import body_velocities
 from idto_tpu_torch.utils.consts import const
 
@@ -34,10 +36,19 @@ _POINT_SHAPES = (
     GeomType.CYLINDER,
     GeomType.SPHERE,
     GeomType.HALFSPACE,
+    GeomType.CONVEX,
 )
 # Shapes a capsule is held against by the search along its axis.
-_CAPSULE_SEARCH_SHAPES = (GeomType.BOX, GeomType.HALFSPACE, GeomType.CYLINDER)
+_CAPSULE_SEARCH_SHAPES = (GeomType.BOX, GeomType.HALFSPACE, GeomType.CYLINDER,
+                          GeomType.CONVEX)
 _TERNARY_STEPS = 48
+
+
+def pair_supported(ta, tb) -> bool:
+    """The ordered type pair has an SoA kernel: all but a halfspace against
+    a halfspace."""
+    return not (GeomType(ta) == GeomType.HALFSPACE
+                and GeomType(tb) == GeomType.HALFSPACE)
 
 
 def supports_soa(model: Model) -> bool:
@@ -45,22 +56,7 @@ def supports_soa(model: Model) -> bool:
     g = model.geoms
     if g is None or not g.pairs:
         return True
-    for (ia, ib) in g.pairs:
-        ta, tb = GeomType(g.types[ia]), GeomType(g.types[ib])
-        if ta == GeomType.SPHERE and tb in _POINT_SHAPES:
-            continue
-        if tb == GeomType.SPHERE and ta in _POINT_SHAPES:
-            continue
-        if ta == GeomType.BOX and tb == GeomType.BOX:
-            continue
-        if ta == GeomType.CAPSULE and tb == GeomType.CAPSULE:
-            continue
-        if ta == GeomType.CAPSULE and tb in _CAPSULE_SEARCH_SHAPES:
-            continue
-        if tb == GeomType.CAPSULE and ta in _CAPSULE_SEARCH_SHAPES:
-            continue
-        return False
-    return True
+    return all(pair_supported(g.types[ia], g.types[ib]) for ia, ib in g.pairs)
 
 
 def _c(x, value):
@@ -140,7 +136,8 @@ def _point_cylinder(p, radius, half_len):
 
 def sphere_vs_point_shape(shape_type, params_b, R_b, p_b, center_a, radius_a):
     """Sphere (A) vs point-queryable shape (B), world frame, components
-    leading.  Returns (phi, nhat_AB, w_a, w_b)."""
+    leading; a hull's params are its vertices.  Returns (phi, nhat_AB, w_a,
+    w_b)."""
     c_local = mat3.tmv(R_b, center_a - p_b)
     if shape_type == GeomType.BOX:
         phi_pt, n_l, cl = _point_box(c_local, params_b[:3])
@@ -158,6 +155,8 @@ def sphere_vs_point_shape(shape_type, params_b, R_b, p_b, center_a, radius_a):
         zero = torch.zeros_like(c_local[2])
         n_l = torch.stack([zero, zero, torch.ones_like(c_local[2])], dim=0)
         cl = torch.stack([c_local[0], c_local[1], zero], dim=0)
+    elif shape_type == GeomType.CONVEX:
+        phi_pt, n_l, cl = convex.point_hull(params_b, c_local)
     else:
         raise NotImplementedError(f"shape {shape_type}")
     phi = phi_pt - radius_a
@@ -328,6 +327,8 @@ def _point_shape_phi(shape_type, params, p):
         return _point_cylinder(p, params[0], params[1])[0]
     if shape_type == GeomType.HALFSPACE:
         return p[2]
+    if shape_type == GeomType.CONVEX:
+        return convex.point_hull(params, p)[0]
     raise NotImplementedError(f"shape {shape_type}")
 
 
@@ -346,7 +347,7 @@ def capsule_vs_shape(params_cap, R_c, p_c, shape_type, params_s, R_s, p_s):
     # Segment end points in the shape's frame, for the search's objective.
     a_l = mat3.tmv(R_s, a_w - p_s).detach()
     d_l = mat3.tmv(R_s, b_w - p_s).detach() - a_l
-    prm = params_s.detach()[:, None]
+    prm = convex.with_candidate_axis(shape_type, params_s.detach())
     lo = torch.zeros_like(a_l[0])
     hi = torch.ones_like(lo)
     for _ in range(_TERNARY_STEPS):
@@ -381,6 +382,13 @@ def _pair_distance(ta, prm_a, Ra, pa, tb, prm_b, Rb, pb):
     if tb == GeomType.CAPSULE and ta in _CAPSULE_SEARCH_SHAPES:
         phi, n, wa, wb = capsule_vs_shape(prm_b, Rb, pb, ta, prm_a, Ra, pa)
         return phi, -n, wb, wa
+    if ta in convex.SUPPORT_SHAPES and tb == GeomType.HALFSPACE:
+        return convex.convex_vs_halfspace(ta, prm_a, Ra, pa, Rb, pb)
+    if ta == GeomType.HALFSPACE and tb in convex.SUPPORT_SHAPES:
+        phi, n, wa, wb = convex.convex_vs_halfspace(tb, prm_b, Rb, pb, Ra, pa)
+        return phi, -n, wb, wa
+    if ta in convex.SUPPORT_SHAPES and tb in convex.SUPPORT_SHAPES:
+        return convex.convex_vs_convex(ta, prm_a, Ra, pa, tb, prm_b, Rb, pb)
     raise NotImplementedError(
         f"SoA pair ({ta.name}, {tb.name}); guard with supports_soa"
     )
@@ -431,16 +439,21 @@ def contact_wrenches(model: Model, q, v, params):
     forces = torch.zeros((3, nl, N), dtype=dtype, device=device)
     gparams = geoms.params.to(dtype)  # (ng, 3)
 
+    def pair_params(gtype, idx):
+        """(3, P, 1) params, or a hull's vertices (3, VMAX, P, 1)."""
+        if GeomType(gtype) == GeomType.CONVEX:
+            return geoms.verts.to(dtype)[idx].permute(2, 1, 0)[..., None]
+        return gparams[idx].T[:, :, None]
+
     for (ta, tb), pairs in groups.items():
         ia_np = np.array([p[0] for p in pairs])
         ib_np = np.array([p[1] for p in pairs])
         ia = const(ia_np, device)
         ib = const(ib_np, device)
-        # Pair axis after the components: R (3, 3, P, N), p (3, P, N),
-        # params (3, P, 1).
+        # Pair axis after the components: R (3, 3, P, N), p (3, P, N).
         phi, nhat, wa, wb = _pair_distance(
-            ta, gparams[ia].T[:, :, None], Rg[:, :, ia, :], pg[:, ia, :],
-            tb, gparams[ib].T[:, :, None], Rg[:, :, ib, :], pg[:, ib, :],
+            ta, pair_params(ta, ia), Rg[:, :, ia, :], pg[:, ia, :],
+            tb, pair_params(tb, ib), Rg[:, :, ib, :], pg[:, ib, :],
         )
         p_c = 0.5 * (wa + wb)
         v_a = pd_g[:, ia, :] + mat3.cross(w_g[:, ia, :], p_c - pl_g[:, ia, :])

@@ -567,6 +567,172 @@ def velocity_cheetah():
     _save("velocity_cheetah", **out)
 
 
+# -- goldens of the geometry and the batched diagnostics
+# (tests/test_torch_{convex,geometry,options,playback}.py) -------------------
+
+
+def convex_pairs():
+    """``jit(vmap(signed_distance))`` once per ordered type pair over the
+    poses of tests/test_torch_convex.py, and ``jax.jvp`` along their pose
+    tangents at the separated poses of the hull and generic pairs."""
+    from idto_tpu.geometry.distance import signed_distance
+    from tests import test_torch_convex as tc
+
+    names = ("prm_a", "R_a", "p_a", "prm_b", "R_b", "p_b")
+    out = {}
+    for ta, tb in tc.PAIRS:
+        k = tc._key(ta, tb)
+        case = tc.pair_cases(ta, tb)
+        ja, jb = int(ta), int(tb)
+
+        def sd(prm_a, R_a, p_a, prm_b, R_b, p_b):
+            return signed_distance(ja, prm_a, R_a, p_a, jb, prm_b, R_b, p_b)
+
+        # Each pose, then the same pose with p_a moved by +-PROBE along each
+        # axis: the reference's own change there says how far its answer is
+        # decided by rounding.
+        n = len(case["p_a"])
+        shifts = np.concatenate([np.zeros((1, 3)), tc.PROBE * np.concatenate(
+            [np.eye(3), -np.eye(3)])])
+        args = {x: np.concatenate([case[x]] * len(shifts)) for x in names}
+        args["p_a"] = args["p_a"] + np.repeat(shifts, n, axis=0)
+        ref = jax.jit(jax.vmap(sd))(*(jnp.asarray(args[x]) for x in names))
+        for name, x in zip(("phi", "n", "wa", "wb"), ref):
+            x = np.asarray(x).reshape((len(shifts), n) + np.shape(x)[1:])
+            out[f"{k}_{name}"] = x[0]
+            out[f"{k}_{name}_spread"] = np.abs(x[1:] - x[0]).reshape(
+                len(shifts) - 1, n, -1).max(axis=(0, 2))
+        ref = [out[f"{k}_{name}"] for name in ("phi", "n", "wa", "wb")]
+        for name in names:
+            out[f"{k}_{name}"] = case[name]
+        if (ta, tb) not in tc.CONVEX_PAIRS:
+            continue
+        sep = np.asarray(ref[0]) > tc.SEPARATED
+        out[f"{k}_separated"] = sep
+        sub = {key: v[sep] for key, v in case.items()}
+        RK_a = sub["R_a"] @ tc._skew(sub["w_a"])
+        RK_b = sub["R_b"] @ tc._skew(sub["w_b"])
+
+        def moved(prm_a, R_a, RK_a, p_a, dp_a, prm_b, R_b, RK_b, p_b, dp_b):
+            return jax.jvp(lambda s: sd(prm_a, R_a + s * RK_a, p_a + s * dp_a,
+                                        prm_b, R_b + s * RK_b,
+                                        p_b + s * dp_b),
+                           (jnp.zeros(()),), (jnp.ones(()),))[1]
+
+        tans = jax.jit(jax.vmap(moved))(*(jnp.asarray(x) for x in (
+            sub["prm_a"], sub["R_a"], RK_a, sub["p_a"], sub["dp_a"],
+            sub["prm_b"], sub["R_b"], RK_b, sub["p_b"], sub["dp_b"])))
+        for name, x in zip(("phi", "n", "wa", "wb"), tans):
+            out[f"{k}_jvp_{name}"] = np.asarray(x)
+        print(f"  {k}: {sep.sum()} separated of {sep.size}")
+    _save("convex_pairs", **out)
+
+
+def hills_cheetah():
+    """mini_cheetah with three cylinder hills at the YAML's settings cut to
+    T=8: ``solve_batch`` (``vmap(solve_trust_region)`` on the AoS physics,
+    the scan-Thomas), B=2, two iterations."""
+    import dataclasses
+
+    from idto_tpu.examples import registry as jreg
+    from idto_tpu.examples.config import (
+        ExampleConfig,
+        build_initial_guess,
+        build_problem,
+        build_solver_params,
+    )
+    from tests import test_torch_geometry as tg
+
+    cfg = tg.hills_cfg(ExampleConfig.load(os.path.join(
+        _REPO, "idto_tpu", "examples", "configs", "mini_cheetah.yaml")))
+    model = jreg._mini_cheetah(hills=tg.HILLS).finalize()
+    prob = build_problem(cfg, model)
+    params = build_solver_params(cfg).replace(max_iterations=tg.HILLS_ITERS)
+    assert params.linear_solver == LinearSolverType.PENTA_LU
+    qg = tg.hills_guesses(np.asarray(build_initial_guess(cfg, prob)))
+    sol, stats, _ = jax.jit(
+        lambda p, q: solve_batch(model, p, params, q)
+    )(broadcast_problem(prob, tg.HILLS_B), jnp.asarray(qg))
+    _save("hills_cheetah", q_guess=qg, q=np.asarray(sol.q),
+          tau=np.asarray(sol.tau), cost=np.asarray(stats.cost),
+          num_iters=np.asarray(stats.num_iters))
+
+
+def verbose_pendulum():
+    """The verbose table of the pendulum's ``solve_batch`` at B=2 (the
+    vmapped trust region: the table is printed by ordered callbacks)."""
+    import contextlib
+    import io
+
+    from tests import test_torch_options as to
+
+    model, _, prob, params, q_guess = load_example("pendulum")
+    p = params.replace(max_iterations=to.VERBOSE_ITERS, verbose=True)
+    qg = to.batch_guesses(np.asarray(q_guess))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sol, stats, _ = jax.jit(
+            lambda pr, q: solve_batch(model, pr, p, q)
+        )(broadcast_problem(prob, to.VERBOSE_B), jnp.asarray(qg))
+        jax.block_until_ready(sol.q)
+        jax.effects_barrier()
+    print(buf.getvalue())
+    _save("verbose_pendulum", q_guess=qg, text=np.array(buf.getvalue()),
+          cost=np.asarray(stats.cost))
+
+
+def geometry_wrenches():
+    """The AoS ``contact_wrenches`` of the cheetah with hills and of the
+    hull pad (over a halfspace, over the cheetah's ground box, with the
+    forward derivative along a q tangent) at tests/test_torch_geometry.py's
+    states."""
+    from idto_tpu.contact.force import ContactParams, contact_wrenches
+    from idto_tpu.examples import registry as jreg
+    from tests import test_torch_geometry as tg
+
+    def soa(x):  # (N, nl, 3) -> (3, nl, N)
+        return np.asarray(x).transpose(2, 1, 0)
+
+    model = jreg._mini_cheetah(hills=tg.HILLS).finalize()
+    _, _, _, params, q_guess = load_example("mini_cheetah")
+    q, v = tg.hills_wrench_states(np.asarray(q_guess), model.nv)
+    tq, f = jax.jit(jax.vmap(lambda x, y: contact_wrenches(
+        model, x, y, params.contact)))(jnp.asarray(q.T), jnp.asarray(v.T))
+    out = dict(hills_q=q, hills_v=v, hills_torques=soa(tq),
+               hills_forces=soa(f))
+    q, v, dq = tg.pad_wrench_states()
+    for shape in ("hull", "hull_box_ground"):
+        model = tg.jax_pad_model(shape)
+
+        def one(x, y, dx):
+            return jax.jvp(lambda z: contact_wrenches(
+                model, z, y, ContactParams()), (x,), (dx,))
+
+        (tq, f), (dtq, df) = jax.jit(jax.vmap(one))(
+            *(jnp.asarray(a.T) for a in (q, v, dq)))
+        out.update({f"{shape}_q": q, f"{shape}_torques": soa(tq),
+                    f"{shape}_forces": soa(f),
+                    f"{shape}_jvp_torques": soa(dtq),
+                    f"{shape}_jvp_forces": soa(df)})
+    _save("geometry_wrenches", **out)
+
+
+def scene_convex():
+    """``trajectory_scene_data`` of the model with a convex hull of
+    tests/test_torch_playback.py at its seeded knots."""
+    import json
+
+    from idto_tpu.models.model import GeomType, JointType, ModelBuilder
+    from idto_tpu.utils.playback import trajectory_scene_data
+    from tests import test_torch_playback as tp
+
+    model = tp.convex_scene_builder(ModelBuilder, JointType,
+                                    GeomType).finalize()
+    qs = tp.convex_scene_knots()
+    scene = trajectory_scene_data(model, qs, 0.05)
+    _save("scene_convex", qs=qs, scene=np.array(json.dumps(scene)))
+
+
 def main(argv):
     which = argv or ["slice", "constraints", "mpc", "fleet", "closed_loop",
                      "dynamics", "partials"]
@@ -616,6 +782,16 @@ def main(argv):
         api_pendulum()
     if "velocity" in which:
         velocity_cheetah()
+    if "convex" in which:
+        convex_pairs()
+    if "hills" in which:
+        hills_cheetah()
+    if "verbose" in which:
+        verbose_pendulum()
+    if "scene" in which:
+        scene_convex()
+    if "wrenches" in which:
+        geometry_wrenches()
 
 
 if __name__ == "__main__":

@@ -88,10 +88,10 @@ def test_builder_variants_match_converted_jax(variant):
             b.set_gravity_enabled(b._link_names[0], True)
     model = tb.finalize(device="cpu")
     _assert_same(model, convert.model(jb.finalize(), device="cpu"), variant)
-    # The hills meet the cheetah's body box: a box-cylinder pair, which the
-    # reference serves with its generic convex pair on the AoS path and the
-    # port does not have yet.
-    assert supports_soa(model) == (variant != "hills")
+    # The hills meet the cheetah's body box: a box-cylinder pair, served by
+    # the generic convex pair kernel (soa/convex.py), as every variant's
+    # pairs are.
+    assert supports_soa(model)
     if variant == "hills":
         assert model.geoms.types.count(int(GeomType.CYLINDER)) == 3
         assert model.geoms.names[-3:] == ("hill_0", "hill_1", "hill_2")
@@ -158,5 +158,7 @@ def test_port_imports_neither_jax_nor_reference():
                  "idto_tpu_torch.utils.checkpoint",
                  "idto_tpu_torch.utils.profiler",
                  "idto_tpu_torch.utils.timing", "idto_tpu_torch.ops.cr_kernel",
-                 "idto_tpu_torch.mpc.runner"):
+                 "idto_tpu_torch.mpc.runner", "idto_tpu_torch.utils.playback",
+                 "idto_tpu_torch.utils.liveview", "idto_tpu_torch.soa.convex",
+                 "idto_tpu_torch.models.mesh", "idto_tpu_torch.models.sdf"):
         assert name in out["names"], name

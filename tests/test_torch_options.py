@@ -221,14 +221,71 @@ def test_record_iteration_times_fills_stats_time():
     assert np.isnan(stats.time.numpy()).all()
 
 
+VERBOSE_B = 2
+VERBOSE_ITERS = 3
+
+
+def batch_guesses(q_guess):
+    """The pendulum's guess and the guess lifted by 0.01 rad after q_0: both
+    scenarios run every iteration (no convergence test fires in 3)."""
+    qg = np.stack([np.asarray(q_guess)] * VERBOSE_B)
+    qg[1, 1:] += 0.01
+    return qg
+
+
+def _rows(text):
+    return [ln for ln in text.splitlines() if re.match(r"^\s+\d+ \| ", ln)]
+
+
 @pytest.mark.parametrize("option", ["verbose", "record_iteration_times"])
-def test_single_scenario_options_refuse_a_batch(option):
+def test_single_scenario_options_refuse_a_batch(option, capsys):
+    """These two options were refused at B > 1 (the test keeps its name);
+    now, at B=2, they match the JAX package, which runs
+    ``vmap(solve_trust_region)``: its ordered callbacks print one row a scenario an iteration, in scenario
+    order (goldens/torch_verbose_pendulum.npz, its text).  The port prints
+    the same rows; the vmapped callbacks also print the header once for each
+    scenario at iteration 0, the port once.  The timer: each scenario's
+    ``stats.time`` row holds the batch iterations it ran (the JAX package's
+    ``attach_iteration_times`` writes along the scenario axis instead).  The
+    linesearch (which prints no table in either package) takes both."""
+    ref = np.load(os.path.join(_GOLDENS, "torch_verbose_pendulum.npz"))
     model, _, prob, params, q_guess = load_example("pendulum", device="cpu")
+    qg = batch_guesses(q_guess)
+    assert np.array_equal(ref["q_guess"], qg)
+    want = str(ref["text"])
     for method in SolverMethod:
-        with pytest.raises(ValueError, match="single-scenario"):
-            solve_batch(model, broadcast_problem(prob, 2),
-                        params.replace(method=method, **{option: True}),
-                        q_guess[None].repeat(2, 1, 1))
+        capsys.readouterr()
+        sol, stats, _ = solve_batch(
+            model, broadcast_problem(prob, VERBOSE_B), params.replace(
+                method=method, max_iterations=VERBOSE_ITERS,
+                **{option: True}), torch.as_tensor(qg))
+        out = capsys.readouterr().out
+        assert stats.num_iters.tolist() == [VERBOSE_ITERS] * VERBOSE_B
+        t = stats.time.numpy()
+        if option == "verbose":
+            assert np.isnan(t).all()
+            if method == SolverMethod.TRUST_REGION:
+                assert _rows(out) == _rows(want)
+                assert len(_rows(out)) == VERBOSE_B * VERBOSE_ITERS
+                assert out.count(" iter |") == 1
+                assert want.count(" iter |") == VERBOSE_B
+                assert _rel(stats.cost, ref["cost"]) < 1e-10
+            else:
+                assert _rows(out) == []
+        else:
+            assert out == ""
+            assert (t > 0).all() and (t[0] == t[1]).all()
+    if option == "record_iteration_times":
+        # Scenarios that stop early keep NaN past their last iteration.
+        itimer.reset()
+        for _ in range(3):
+            itimer.mark()
+        st = stats.replace(num_iters=torch.tensor([3, 1], dtype=torch.int32),
+                           time=torch.full((2, 5), float("nan"),
+                                           dtype=torch.float64))
+        t = itimer.attach(st).time.numpy()
+        assert np.isfinite(t[0, :3]).all() and np.isnan(t[0, 3:]).all()
+        assert t[1, 0] == t[0, 0] and np.isnan(t[1, 1:]).all()
 
 
 def test_itimer_on_the_cpu():

@@ -133,3 +133,35 @@ def test_smoke_holds_every_launch_shape_of_the_fleet_and_the_closed_loops():
         chip_smoke.CLOSED_LOOP_SHAPES)
     # jaco's loop runs at B=1, where the fleet's shapes are held too
     assert launches(chip_smoke.UNSTABLE_LOOP_EXAMPLE) <= fleet
+
+
+def test_smoke_geometry_inputs_are_the_hills_and_the_hull_pad(tmp_path):
+    """The geometry phase's inputs, built on the CPU: the cheetah with its
+    three box-cylinder pairs at the cheetah's kernel shape, and the pad
+    whose SDF <mesh> becomes the hull of the box it is held against (blocks
+    of chip_smoke.PAD_K)."""
+    from idto_tpu_torch.models.model import GeomType
+    from idto_tpu_torch.soa.contact import supports_soa
+
+    model, prob, params, qg = chip_smoke.cheetah_inputs(
+        2, 0, "cpu", iters=chip_smoke.GEOMETRY_ITERS, hills=chip_smoke.HILLS)
+    pairs = [(model.geoms.types[a], model.geoms.types[b])
+             for a, b in model.geoms.pairs]
+    assert pairs.count((int(GeomType.BOX), int(GeomType.CYLINDER))) == 3
+    assert supports_soa(model) and model.nq == chip_smoke.CHEETAH_K
+    assert params.max_iterations == chip_smoke.GEOMETRY_ITERS
+    shapes = {}
+    for shape in ("hull", "box", "hull_box_ground"):
+        m, p, sp, q = chip_smoke.pad_inputs(3, 0, "cpu", shape, str(tmp_path))
+        shapes[shape] = m
+        assert m.nq == chip_smoke.PAD_K and q.shape == (3, p.num_steps + 1, 7)
+        assert p.num_steps == chip_smoke.PAD_T and supports_soa(m)
+    hull, box = shapes["hull"], shapes["box"]
+    assert hull.geoms.types == (int(GeomType.CONVEX), int(GeomType.HALFSPACE))
+    assert box.geoms.types == (int(GeomType.BOX), int(GeomType.HALFSPACE))
+    corners = hull.geoms.verts[0]
+    assert torch.equal(corners.abs().amax(dim=0),
+                       torch.tensor(chip_smoke.PAD_HALF, dtype=torch.float64))
+    assert torch.equal(box.geoms.params[0],
+                       torch.tensor(chip_smoke.PAD_HALF, dtype=torch.float64))
+    assert shapes["hull_box_ground"].geoms.types[1] == int(GeomType.BOX)

@@ -9,6 +9,7 @@ expressions); 1e-7 on the chain's q (one initial iteration and two
 replans, as tests/test_torch_mpc.py holds the fixed-nominal chain).
 """
 import dataclasses
+import json
 import os
 import re
 
@@ -132,22 +133,30 @@ def test_schedule():
             cli.parse_schedule(bad)
 
 
-def test_cli_runs_the_cheetah_on_the_cpu(capsys, monkeypatch):
+def test_cli_runs_the_cheetah_on_the_cpu(capsys, monkeypatch, tmp_path):
     """Two replans of 17 substeps under a forward command, the initial
-    solve cut to one iteration; the JAX script's two lines."""
+    solve cut to one iteration; the JAX script's two lines, and the
+    simulated run's playback file."""
     load = ExampleConfig.load.__func__
 
     def short_load(cls, path):
         return dataclasses.replace(load(cls, path), max_iters=1)
 
     monkeypatch.setattr(ExampleConfig, "load", classmethod(short_load))
+    html = tmp_path / "run.html"
     assert cli.main(["mini_cheetah", "--schedule", "0: 0.3 0 0",
-                     "--sim-time", "0.034", "--device", "cpu"]) == 0
+                     "--sim-time", "0.034", "--device", "cpu",
+                     "--playback", str(html)]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("[mini_cheetah] 2 replans, mean solve ")
     assert out[0].endswith(" Hz)")
     assert re.fullmatch(
         r"base displacement: dx=[+-]\d+\.\d{3} m dy=[+-]\d+\.\d{3} m",
         out[1])
+    assert out[2] == f"playback written to {html}"
+    scene = json.loads(re.search(r"const SCENE = (\{.*?\});\n",
+                                 html.read_text(), re.S).group(1))
+    # 1 + 2 x 17 logged states at a stride of 20 substeps of 1 ms.
+    assert len(scene["frames"]) == 2 and scene["dt"] == pytest.approx(0.02)
     with pytest.raises(SystemExit):
-        cli.main(["pendulum", "--playback", "x.html"])
+        cli.main(["pendulum", "--platform=cpu"])
