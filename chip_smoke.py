@@ -85,7 +85,37 @@ exits non-zero without the final result line:
                  replan, an FD iteration of each order against AUTODIFF, a
                  linesearch and a dense iteration, and the dense LU solve of
                  a cheetah Hessian against the kernel's.
- 10. times    -- one solve iteration at several batch sizes; the kernel,
+ 10. geometry -- the kernel at this phase's two launch shapes (rows 11,
+                 K=38 and K=14, R=1, B=256) against its plain version,
+                 timed beside its bound, the plain version and a dense
+                 library solve; (a) the cheetah with three cylinder hills
+                 at B=256, two iterations, with a warm iteration and the
+                 launch count against the plain cheetah's; (b) a pad whose
+                 collision geometry is the hull of an OBJ ``<mesh>`` loaded
+                 through an SDF file, B=256, T=20, against the box pad and
+                 the CPU; (c) one CONVEX-BOX ``contact_wrenches`` and its
+                 exact partials at N=5120 against the CPU.
+ 11. parallel -- the kernel against its plain version, timed, at the two
+                 launch shapes of this phase no other phase has (rows 11,
+                 K=38, B=128; rows 80, K=38, B=1); then the parallel layer
+                 (``idto_tpu_torch/parallel/``) on
+                 ``torch.distributed``, in float64: (a) NCCL at world size
+                 1 in this process: ``solve_batch_sharded`` on the cheetah
+                 at its YAML size (B=256, CR, two iterations: 2 launches),
+                 ``solve_sharded`` on random SPD systems of T=160 and
+                 T=640, and ``solve_trust_region_horizon_sharded`` on the
+                 cheetah at full width over T=159 steps (160 knots); (b)
+                 gloo at world size 2, both ranks on the one card with CUDA
+                 tensors (NCCL refuses two ranks on one GPU): the
+                 scenario-sharded batch (128 a rank, 2 launches a rank),
+                 ``solve_sharded`` at T=160 and T=640 and the
+                 horizon-sharded cheetah (80 knots a rank, distributed
+                 cyclic reduction: no launch).  Each against the same call
+                 made single-process on the card; informational times: a
+                 per-rank iteration at world size 1 and 2, the horizon
+                 solve's and the horizon-sharded iteration's time in
+                 collectives.  A failure of either rank fails the phase.
+ 12. times    -- one solve iteration at several batch sizes; the kernel,
                  the whole ``solve_many`` call, the plain version and a
                  dense library solve at the cheetah shape, with CUDA
                  events, beside the least time the card could take; the
@@ -254,6 +284,31 @@ WRENCH_NREF = 64  # instances run again on the CPU
 # not converged, tests/test_torch_convex.py; at these poses card and CPU
 # take the same paths.)
 WRENCH_RTOL = 1e-9
+
+# The parallel phase: the scenario-sharded cheetah batch (the slice's batch,
+# two iterations), the horizon-sharded random SPD systems of T=160 and T=640
+# (n = T + 1 block rows of the cheetah's k), and the horizon-sharded trust
+# region on the cheetah at full width over T=159 steps (160 knots), at world
+# size 1 (NCCL) and 2 (gloo, both ranks on the card).  Each is held against
+# the same call made single-process on the card: a rank's share of the batch
+# against that share solved alone, and the systems, run the same arithmetic
+# (1e-9).  The cheetah at its guess is ill-conditioned (condition ~1e10,
+# PERF.md section 6), so two bounds are measured ones, each with its run
+# (an H100 80GB HBM3 at 700 W): the whole batch at world size 2 against one
+# call of B=256 (5.3e-5 on q: the kernel gives a smaller batch whole blocks
+# of warps a system, and its other summation order is amplified in the
+# second iteration's Newton step), and the horizon-sharded cheetah, which
+# reduces to one row a rank and solves the two-row system by Thomas where
+# the single-process kernel reduces to one row (3.9e-7 on q).
+PARALLEL_BATCH = 256
+PARALLEL_ITERS = 2
+PARALLEL_SYSTEMS = (161, 641)
+PARALLEL_T = 159
+PARALLEL_WORLD = 2
+PARALLEL_RTOL = 1e-9
+WHOLE_BATCH_RTOL = 1e-3
+HORIZON_CHEETAH_RTOL = 1e-5
+PARALLEL_DEADLINE = 300  # seconds the two ranks may take, start included
 
 # Peak rates of one H100 SXM (NVIDIA H100 data sheet): HBM3 bandwidth;
 # float64 on the tensor cores and on the FMA pipes; float32 on the FMA
@@ -1621,7 +1676,11 @@ def solve_on(device, inputs, nref=None):
 
 def launch_count(fn):
     """CUDA kernel launches of one call of fn, from torch.profiler's host
-    events, its device-busy share and its profiled wall ms."""
+    events, its device-busy share and its profiled wall ms.  The profiler's
+    raw events are read as they come: building its per-name averages takes
+    a minute and more for the ~10^5 launches of a hull evaluation."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1633,17 +1692,21 @@ def launch_count(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    launches = sum(e.count for e in events
-                   if e.key.startswith("cudaLaunchKernel"))
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA) / 1e3
-    top = sorted((e for e in events if e.device_type != DeviceType.CUDA),
-                 key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
-    log("profile", "host self time: " + ", ".join(
-        f"{e.key} {e.self_cpu_time_total / 1e3:.0f} ms ({e.count})"
-        for e in top))
-    return launches, busy_ms / wall_ms, wall_ms
+    launches, busy_ns = 0, 0
+    host = collections.Counter()
+    counts = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+            continue
+        name = e.name()
+        launches += name.startswith("cudaLaunchKernel")
+        host[name] += e.duration_ns()
+        counts[name] += 1
+    log("profile", "host time, nested calls included: " + ", ".join(
+        f"{name} {ns / 1e6:.0f} ms ({counts[name]})"
+        for name, ns in host.most_common(6)))
+    return launches, busy_ns / 1e6 / wall_ms, wall_ms
 
 
 def compare_solves(tag, sol, stats, sol_c, stats_c, tol):
@@ -1677,11 +1740,15 @@ def phase_geometry(seed):
     from idto_tpu_torch.soa.partials import _jac_rows
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    # The kernel at the shapes of this phase's launches (R = 1, B = 256):
-    # the cheetah's blocks of 19 and the pad's of 7.
-    for k in (CHEETAH_K, PAD_K):
-        check_kernel(gen, CHEETAH_N, k, GEOMETRY_BATCH, 1, torch.float64)
     launches, numbers = {}, {}
+    # The kernel at the shapes of this phase's launches (R = 1, B = 256):
+    # the cheetah's blocks of 19 and the pad's of 7; timed beside its
+    # bound, the plain version and a dense library solve.
+    for k in (CHEETAH_K, PAD_K):
+        numbers[f"kernel_rows{(CHEETAH_N + 1) // 2}_K{2 * k}_R1_"
+                f"B{GEOMETRY_BATCH}"] = check_kernel(
+            gen, CHEETAH_N, k, GEOMETRY_BATCH, 1, torch.float64, timed=True,
+            yardsticks=True)
 
     # (a) the cheetah with hills, at full width.
     inputs = cheetah_inputs(GEOMETRY_BATCH, seed, "cuda",
@@ -1822,6 +1889,384 @@ def phase_geometry(seed):
     return launches, numbers
 
 
+def long_cheetah_inputs(device, iters, T=PARALLEL_T):
+    """mini_cheetah at its YAML settings but for a horizon of T steps (the
+    YAML's nominal and guess spread over T), cyclic reduction, float64,
+    ``max_iterations=iters``."""
+    import dataclasses
+
+    import torch
+
+    from idto_tpu_torch.examples import config, registry
+    from idto_tpu_torch.optimizer.problem import LinearSolverType
+
+    model, cfg, _, params, _ = registry.load_example(
+        "mini_cheetah", dtype=torch.float64, device=device)
+    cfg = dataclasses.replace(cfg, num_steps=T)
+    prob = config.build_problem(cfg, model, dtype=torch.float64,
+                                device=device)
+    q_guess = config.build_initial_guess(cfg, dtype=torch.float64,
+                                         device=device)
+    params = params.replace(
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION,
+        check_convergence=False, max_iterations=iters,
+    )
+    return model, prob, params, q_guess
+
+
+def timed_collectives():
+    """Wrap torch.distributed's all_gather and all_reduce (the only
+    collectives of the parallel layer) to add the synchronized host time
+    spent in them to ``spent[0]`` and count them in ``spent[1]``; returns
+    (spent, restore)."""
+    import torch
+    import torch.distributed as dist
+
+    spent = [0.0, 0]
+    originals = {name: getattr(dist, name)
+                 for name in ("all_gather", "all_reduce")}
+
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return out
+        return timed
+
+    for name, fn in originals.items():
+        setattr(dist, name, wrap(fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+    return spent, restore
+
+
+def synced_ms(fn):
+    """Host milliseconds of one call of fn, synchronized before and after;
+    returns (ms, fn's result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def parallel_rank(rank, world, rendezvous, directory, seed):
+    """One gloo rank of the parallel phase's world of ``world`` on the one
+    card, with CUDA tensors: the scenario-sharded cheetah batch, the
+    horizon-sharded systems and the horizon-sharded trust region; writes
+    its results to ``directory``/rank{rank}.pt."""
+    import torch
+
+    from idto_tpu_torch.ops import cr_kernel
+    from idto_tpu_torch.ops.penta import PentaBands
+    from idto_tpu_torch.parallel import horizon, multihost
+    from idto_tpu_torch.parallel.batching import (
+        broadcast_problem,
+        make_mesh,
+        solve_batch,
+        solve_batch_sharded,
+    )
+
+    multihost.initialize(rendezvous, world, rank, device="cuda",
+                         backend="gloo")
+    out = {"backend": torch.distributed.get_backend()}
+    smesh = make_mesh(axis="scenario", device="cuda")
+    model, prob, params, qg = cheetah_inputs(PARALLEL_BATCH, seed, "cuda",
+                                             iters=PARALLEL_ITERS)
+    probs = broadcast_problem(prob, PARALLEL_BATCH)
+    cr_kernel.launches = 0
+    sol, stats, warm, mean_cost = solve_batch_sharded(
+        model, probs, params, qg, smesh)
+    torch.cuda.synchronize()
+    out["batch_launches"] = cr_kernel.launches
+    out.update(batch_q=sol.q.cpu(), batch_cost=stats.cost.cpu(),
+               batch_flag=stats.solver_flag.cpu(),
+               batch_mean_cost=float(mean_cost))
+    # The same per-rank solve made single-process: this rank's share alone.
+    rows = multihost.axis_group(smesh, "scenario").rows(PARALLEL_BATCH)
+    alone, alone_stats, _ = solve_batch(model, broadcast_problem(
+        prob, rows.stop - rows.start), params, qg[rows])
+    out["share_vs_alone"] = max(
+        rel_err(sol.q[rows], alone.q),
+        rel_err(stats.cost[rows], alone_stats.cost))
+    one = params.replace(max_iterations=1)
+    out["batch_iteration_ms"] = [synced_ms(lambda: solve_batch_sharded(
+        model, probs, one, qg, smesh))[0] for _ in range(2)]
+    del sol, stats, warm, probs
+
+    hmesh = make_mesh(axis="horizon", device="cuda")
+    systems = torch.load(os.path.join(directory, "systems.pt"))
+    for n, system in systems.items():
+        H = PentaBands(**{f: system[f].cuda() for f in "ABCDE"})
+        b = system["b"].cuda()
+        horizon.solve_sharded(H, b, hmesh)  # warm
+        spent, restore = timed_collectives()
+        try:
+            ms, x = synced_ms(lambda: horizon.solve_sharded(H, b, hmesh))
+        finally:
+            restore()
+        out[f"system_{n}"] = x.cpu()
+        out[f"system_{n}_ms"] = ms
+        out[f"system_{n}_collective_ms"] = 1e3 * spent[0]
+        out[f"system_{n}_collectives"] = spent[1]
+
+    model, prob, params, qg = long_cheetah_inputs("cuda", PARALLEL_ITERS)
+    cr_kernel.launches = 0
+    sol, stats, _ = horizon.solve_trust_region_horizon_sharded(
+        model, prob, params, qg, hmesh)
+    torch.cuda.synchronize()
+    out["horizon_launches"] = cr_kernel.launches
+    out.update(horizon_q=sol.q.cpu(), horizon_cost=stats.cost.cpu())
+    one = params.replace(max_iterations=1)
+    spent, restore = timed_collectives()
+    try:
+        ms, _ = synced_ms(lambda: horizon.solve_trust_region_horizon_sharded(
+            model, prob, one, qg, hmesh))
+    finally:
+        restore()
+    out.update(horizon_iteration_ms=ms,
+               horizon_collective_ms=1e3 * spent[0],
+               horizon_collectives=spent[1])
+    torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def phase_parallel(seed):
+    """The parallel layer on the card: (a) NCCL at world size 1 in this
+    process, (b) gloo at world size 2, both ranks on the one card with CUDA
+    tensors; each result held against the same call made single-process on
+    the card.  Returns the kernel's launches by path and the numbers."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from idto_tpu_torch.ops import cr_kernel, cyclic_reduction, penta
+    from idto_tpu_torch.optimizer.solver import solve
+    from idto_tpu_torch.parallel import horizon, multihost
+    from idto_tpu_torch.parallel.batching import (
+        broadcast_problem,
+        make_mesh,
+        solve_batch,
+        solve_batch_sharded,
+    )
+
+    phase_t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    # The kernel at this phase's launch shapes it has not met before, held
+    # against its plain version and timed: a rank's share of the batch at
+    # world size 2, and the horizon-sharded cheetah at world size 1 (one
+    # system of T + 1 block rows).
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    for n, B in ((CHEETAH_N, PARALLEL_BATCH // PARALLEL_WORLD),
+                 (PARALLEL_T + 1, 1)):
+        numbers[f"kernel_rows{(n + 1) // 2}_K{2 * CHEETAH_K}_R1_B{B}"] = \
+            check_kernel(gen, n, CHEETAH_K, B, 1, torch.float64, timed=True,
+                         yardsticks=True)
+    # (a) NCCL, a group of one.
+    smesh = make_mesh(axis="scenario", device="cuda")
+    backend = dist.get_backend()
+    model, prob, params, qg = cheetah_inputs(PARALLEL_BATCH, seed, "cuda",
+                                             iters=PARALLEL_ITERS)
+    probs = broadcast_problem(prob, PARALLEL_BATCH)
+    cr_kernel.launches = 0
+    sol, stats, _, mean_cost = solve_batch_sharded(model, probs, params, qg,
+                                                   smesh)
+    torch.cuda.synchronize()
+    launches["parallel_scenario_ws1"] = cr_kernel.launches
+    sol1, stats1, _ = solve_batch(model, probs, params, qg)
+    check_solution(sol1, stats1, "parallel single-process")
+    iters = (stats1.num_iters.long() - 1).clamp_min(0)
+    mean1 = float(stats1.cost.gather(1, iters[:, None]).mean())
+    e = {"q": rel_err(sol.q, sol1.q), "cost": rel_err(stats.cost, stats1.cost),
+         "mean_cost": abs(float(mean_cost) - mean1) / abs(mean1)}
+    # A warm iteration, sharded and plain in turns.
+    one = params.replace(max_iterations=1)
+    warm = {"sharded": [], "plain": []}
+    for tag in ("sharded", "plain", "plain", "sharded"):
+        warm[tag].append(synced_ms(
+            lambda: solve_batch_sharded(model, probs, one, qg, smesh)
+            if tag == "sharded" else solve_batch(model, probs, one, qg))[0])
+    ws1_ms = warm["sharded"]
+    log("parallel", f"(a) {backend}, world 1: the scenario-sharded cheetah "
+                    f"B={PARALLEL_BATCH}, {PARALLEL_ITERS} iterations: "
+                    f"{launches['parallel_scenario_ws1']} kernel launches; "
+                    "against solve_batch: " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in e.items())
+                    + f" (tol {PARALLEL_RTOL:g}); a warm iteration "
+                    + " / ".join(f"{x:.1f}" for x in ws1_ms)
+                    + " ms against solve_batch's " + " / ".join(
+                        f"{x:.1f}" for x in warm["plain"]) + " ms")
+    if launches["parallel_scenario_ws1"] != PARALLEL_ITERS:
+        raise AssertionError("parallel: the sharded batch missed the kernel")
+    if not max(e.values()) <= PARALLEL_RTOL:
+        raise AssertionError("parallel: the sharded batch disagrees")
+    numbers.update(ws1_iteration_ms=min(ws1_ms),
+                   plain_iteration_ms=min(warm["plain"]), ws1_vs_single=e)
+    ref_batch = (sol1.q.cpu(), stats1.cost.cpu(), mean1)
+    del sol, stats, sol1, stats1, probs
+
+    hmesh = make_mesh(axis="horizon", device="cuda")
+    systems, ref_x = {}, {}
+    for n in PARALLEL_SYSTEMS:
+        H = random_spd_penta(1, n, CHEETAH_K, torch.float64, gen)
+        b = torch.randn((1, n, CHEETAH_K), generator=gen,
+                        dtype=torch.float64, device="cuda")
+        x = horizon.solve_sharded(H, b, hmesh)
+        ref_x[n] = cyclic_reduction.solve(H, b)
+        e_single = rel_err(x, ref_x[n])
+        msg = (f"(a) solve_sharded T={n - 1} (n={n}, k={CHEETAH_K}) world 1: "
+               f"against cyclic_reduction.solve {e_single:.3e}")
+        if n == PARALLEL_SYSTEMS[0]:
+            dense, bd = dense_solve_inputs(H, b[:, None])
+            e_dense = rel_err(x, torch.linalg.solve(dense, bd).reshape(
+                b.shape))
+            msg += f", against a dense solve {e_dense:.3e}"
+            e_single = max(e_single, e_dense)
+        log("parallel", msg + f" (tol {PARALLEL_RTOL:g})")
+        if not e_single <= PARALLEL_RTOL:
+            raise AssertionError("parallel: solve_sharded disagrees")
+        systems[n] = {"b": b.cpu(),
+                      **{f: getattr(H, f).cpu() for f in "ABCDE"}}
+
+    lmodel, lprob, lparams, lqg = long_cheetah_inputs("cuda", PARALLEL_ITERS)
+    cr_kernel.launches = 0
+    t0 = time.perf_counter()
+    hsol, hstats, _ = horizon.solve_trust_region_horizon_sharded(
+        lmodel, lprob, lparams, lqg, hmesh)
+    torch.cuda.synchronize()
+    h_s = time.perf_counter() - t0
+    launches["parallel_horizon_ws1"] = cr_kernel.launches
+    fused = solve(lmodel, lprob, lparams, lqg)
+    levels = solve(lmodel, lprob, lparams.replace(cr_use_pallas=False), lqg)
+    e = rel_err(hsol.q, fused[0].q)
+    log("parallel", f"(a) the horizon-sharded cheetah T={PARALLEL_T} "
+                    f"(nq={lmodel.nq}) world 1, {PARALLEL_ITERS} iterations: "
+                    f"{h_s:.2f} s (first call), "
+                    f"{launches['parallel_horizon_ws1']} kernel launches, "
+                    f"cost {hstats.cost[0].item():.6e} -> "
+                    f"{hstats.cost[-1].item():.6e}; against solve {e:.3e} "
+                    f"(tol {PARALLEL_RTOL:g}); the level-wise route against "
+                    f"the fused {rel_err(levels[0].q, fused[0].q):.3e}")
+    if not (e <= PARALLEL_RTOL and bool(torch.isfinite(hsol.q).all())):
+        raise AssertionError("parallel: the horizon-sharded solve disagrees")
+    if launches["parallel_horizon_ws1"] != PARALLEL_ITERS:
+        raise AssertionError("parallel: the world-1 horizon solve missed "
+                             "the kernel")
+    ref_h = {"fused": fused[0].q.cpu(), "levels": levels[0].q.cpu()}
+    dist.destroy_process_group()
+    del hsol, fused, levels
+    torch.cuda.empty_cache()
+
+    # (b) gloo, two ranks on the one card.
+    with tempfile.TemporaryDirectory() as directory:
+        torch.save(systems, os.path.join(directory, "systems.pt"))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            parallel_rank, args=(PARALLEL_WORLD, f"file://{directory}/rv",
+                                 directory, seed),
+            nprocs=PARALLEL_WORLD, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > PARALLEL_DEADLINE:
+                    raise AssertionError(f"parallel: the ranks ran past "
+                                         f"{PARALLEL_DEADLINE} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(directory, f"rank{r}.pt"))
+                 for r in range(PARALLEL_WORLD)]
+
+    errs = {}
+    for r, out in enumerate(ranks):
+        launches[f"parallel_scenario_ws2_rank{r}"] = out["batch_launches"]
+        errs[r] = {
+            "share_vs_alone": out["share_vs_alone"],
+            **{f"system_T{n - 1}": rel_err(out[f"system_{n}"], ref_x[n].cpu())
+               for n in PARALLEL_SYSTEMS},
+        }
+        whole = {"q": rel_err(out["batch_q"], ref_batch[0]),
+                 "cost": rel_err(out["batch_cost"], ref_batch[1]),
+                 "mean_cost": abs(out["batch_mean_cost"] - ref_batch[2])
+                 / abs(ref_batch[2])}
+        h_fused = rel_err(out["horizon_q"], ref_h["fused"])
+        h_levels = rel_err(out["horizon_q"], ref_h["levels"])
+        log("parallel", f"(b) {out['backend']} rank {r} of {PARALLEL_WORLD} "
+                        f"with CUDA tensors: the cheetah batch "
+                        f"{PARALLEL_BATCH // PARALLEL_WORLD} a rank, "
+                        f"{out['batch_launches']} kernel launches, a warm "
+                        "iteration " + " / ".join(
+                            f"{x:.1f}" for x in out["batch_iteration_ms"])
+                        + " ms; against the single-process run: " + ", ".join(
+                            f"{k} {v:.3e}" for k, v in errs[r].items())
+                        + f" (tol {PARALLEL_RTOL:g}); the whole batch "
+                        "against the world-1 run at B=256: " + ", ".join(
+                            f"{k} {v:.3e}" for k, v in whole.items())
+                        + f" (tol {WHOLE_BATCH_RTOL:g}); solve_sharded "
+                        + ", ".join(
+                            f"T={n - 1} {out[f'system_{n}_ms']:.2f} ms, "
+                            f"{out[f'system_{n}_collective_ms']:.2f} ms of "
+                            f"it in {out[f'system_{n}_collectives']} "
+                            "collectives" for n in PARALLEL_SYSTEMS))
+        log("parallel", f"(b) rank {r}: the horizon-sharded cheetah "
+                        f"T={PARALLEL_T}, {PARALLEL_ITERS} iterations: cost "
+                        f"{out['horizon_cost'][0].item():.6e} -> "
+                        f"{out['horizon_cost'][-1].item():.6e}, "
+                        f"{out['horizon_launches']} kernel launches; q "
+                        f"against the single-process solve {h_fused:.3e} "
+                        f"(tol {HORIZON_CHEETAH_RTOL:g}), against its "
+                        f"level-wise route {h_levels:.3e}; a warm iteration "
+                        f"{out['horizon_iteration_ms']:.1f} ms, of it "
+                        f"{out['horizon_collective_ms']:.1f} ms in "
+                        f"{out['horizon_collectives']} collectives")
+        if out["batch_launches"] != PARALLEL_ITERS:
+            raise AssertionError(f"parallel: rank {r}'s batch missed the "
+                                 "kernel")
+        if out["horizon_launches"]:
+            raise AssertionError(f"parallel: rank {r}'s horizon-sharded "
+                                 "solve launched the fused kernel")
+        if not (max(errs[r].values()) <= PARALLEL_RTOL
+                and max(whole.values()) <= WHOLE_BATCH_RTOL):
+            raise AssertionError(f"parallel: rank {r} disagrees")
+        errs[r].update(whole_batch=whole, horizon_vs_fused=h_fused,
+                       horizon_vs_levels=h_levels)
+        if not (h_fused <= HORIZON_CHEETAH_RTOL
+                and bool(torch.isfinite(out["horizon_q"]).all())):
+            raise AssertionError(f"parallel: rank {r}'s horizon-sharded "
+                                 "cheetah disagrees")
+    if not all(torch.equal(ranks[0][k], ranks[1][k])
+               for k in ("batch_q", "horizon_q")):
+        raise AssertionError("parallel: the ranks' results differ")
+    log("parallel", f"(b) two ranks in {ranks_s:.1f} s (start included); "
+                    f"the phase {time.perf_counter() - phase_t0:.1f} s")
+    numbers.update(
+        ws2_iteration_ms=[min(o["batch_iteration_ms"]) for o in ranks],
+        ws2_vs_single=errs,
+        horizon_iteration_ms=[o["horizon_iteration_ms"] for o in ranks],
+        horizon_collective_ms=[o["horizon_collective_ms"]
+                                    for o in ranks],
+        system_ms={f"T{n - 1}": [o[f"system_{n}_ms"] for o in ranks]
+                   for n in PARALLEL_SYSTEMS},
+        system_collective_ms={
+            f"T{n - 1}": [o[f"system_{n}_collective_ms"] for o in ranks]
+            for n in PARALLEL_SYSTEMS},
+    )
+    return launches, numbers
+
+
+
 def phase_times(seed, reps):
     """Solve-iteration and kernel times; returns the kernel's numbers at
     the main path's batch for the result line."""
@@ -1923,7 +2368,8 @@ def main(argv=None):
     ap.add_argument("--only", default=None, metavar="PHASE",
                     help="after the device and build phases run this one "
                          "phase (kernel, slice, constraints, mpc, fleet, "
-                         "closed_loop, options, geometry, times) and stop "
+                         "closed_loop, options, geometry, parallel, times) "
+                         "and stop "
                          "without the result lines")
     args = ap.parse_args(argv)
 
@@ -1941,23 +2387,42 @@ def main(argv=None):
             "closed_loop": phase_closed_loop,
             "options": lambda: phase_options(args.seed),
             "geometry": lambda: phase_geometry(args.seed),
+            "parallel": lambda: phase_parallel(args.seed),
             "times": lambda: phase_times(args.seed, REPS),
         }[args.only]
         phase()
         log("only", f"{args.only} passed; no result lines")
         return
-    max_abs, schur, fleet_shapes, loop_shapes = phase_kernel(gen)
-    by_path = {"cheetah_slice": phase_slice(SLICE_BATCH, args.seed)}
-    by_path["hopper_constraints"] = phase_constraints(SLICE_BATCH, args.seed)
-    by_path["mpc_replan"], replan_ms = phase_mpc()
-    by_path["fleet"], fleet_ms = phase_fleet(args.seed)
-    by_path["closed_loop"], loop_replan_ms, loop_period_ms = \
-        phase_closed_loop()
-    options_launches, options_times = phase_options(args.seed)
+    seconds = {}
+
+    def timed_phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        log("time", f"the {name} phase: {seconds[name]:.1f} s")
+        return out
+
+    max_abs, schur, fleet_shapes, loop_shapes = timed_phase(
+        "kernel", lambda: phase_kernel(gen))
+    by_path = {"cheetah_slice": timed_phase(
+        "slice", lambda: phase_slice(SLICE_BATCH, args.seed))}
+    by_path["hopper_constraints"] = timed_phase(
+        "constraints", lambda: phase_constraints(SLICE_BATCH, args.seed))
+    by_path["mpc_replan"], replan_ms = timed_phase("mpc", phase_mpc)
+    by_path["fleet"], fleet_ms = timed_phase(
+        "fleet", lambda: phase_fleet(args.seed))
+    by_path["closed_loop"], loop_replan_ms, loop_period_ms = timed_phase(
+        "closed_loop", phase_closed_loop)
+    options_launches, options_times = timed_phase(
+        "options", lambda: phase_options(args.seed))
     by_path.update(options_launches)
-    geometry_launches, geometry_numbers = phase_geometry(args.seed)
+    geometry_launches, geometry_numbers = timed_phase(
+        "geometry", lambda: phase_geometry(args.seed))
     by_path.update(geometry_launches)
-    times = phase_times(args.seed, REPS)
+    parallel_launches, parallel_numbers = timed_phase(
+        "parallel", lambda: phase_parallel(args.seed))
+    by_path.update(parallel_launches)
+    times = timed_phase("times", lambda: phase_times(args.seed, REPS))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -1985,6 +2450,12 @@ def main(argv=None):
         # The geometry phase: the hills and the hull pad at B=256, the
         # CONVEX-BOX wrenches at N=5120 (float64).
         "geometry": geometry_numbers,
+        # The parallel phase (float64): per-rank iterations at world size 1
+        # (NCCL) and 2 (gloo on one card), the horizon-sharded cheetah at
+        # T=159 and the share of its collectives.
+        "parallel": parallel_numbers,
+        # Host seconds of each phase of this run.
+        "phase_seconds": seconds,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

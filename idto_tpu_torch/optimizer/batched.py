@@ -110,22 +110,34 @@ def _empty_stats(B, max_iters, dtype, device):
     )
 
 
-def _prepare_batched(model, probs, params, qs, D_prev):
-    contact = params.contact
-    tau, v = rollout.generalized_forces(model, probs, contact, qs)
-    cost = rollout.cost(model, probs, contact, qs, tau=tau, v=v)
-    parts = id_partials_for(model, probs, params, qs)
-    nplus = nplus_stack(model, qs)
+def _forces(model, probs, params, qs, horizon):
+    """(tau, v) of the whole horizon; with ``horizon`` (a
+    ``parallel.horizon.HorizonSplit``) each rank evaluates its own steps and
+    gathers the rest."""
+    if horizon is not None:
+        return horizon.forces(model, probs, params.contact, qs)
+    return rollout.generalized_forces(model, probs, params.contact, qs)
+
+
+def _prepare_batched(model, probs, params, qs, D_prev, horizon=None):
+    if horizon is not None:
+        tau, v, parts, nplus = horizon.physics(model, probs, params, qs)
+    else:
+        tau, v = rollout.generalized_forces(model, probs, params.contact, qs)
+        parts = id_partials_for(model, probs, params, qs)
+        nplus = nplus_stack(model, qs)
+    cost = rollout.cost(model, probs, params.contact, qs, tau=tau, v=v)
     return _prepare_from_physics(
-        model, probs, params, qs, D_prev, cost, v, tau, parts, nplus
+        model, probs, params, qs, D_prev, cost, v, tau, parts, nplus,
+        horizon=horizon,
     )
 
 
-def _merit_at_batched(model, probs, params, q_try, lam):
+def _merit_at_batched(model, probs, params, q_try, lam, horizon=None):
     """(merit, cost) at q_try with frozen multipliers, whole batch:
     phi = L + h^T lam_k."""
     contact = params.contact
-    tau, v = rollout.generalized_forces(model, probs, contact, q_try)
+    tau, v = _forces(model, probs, params, q_try, horizon)
     cost = rollout.cost(model, probs, contact, q_try, tau=tau, v=v)
     if lam.shape[-1] > 0:
         unact = model.unactuated_vdofs
@@ -173,10 +185,16 @@ def solve_trust_region_batched(
     params: SolverParameters,
     q_guesses,
     Delta0=None,
+    horizon=None,
 ):
     """Batched trust-region solve: ``probs`` tensors lead with the scenario
     axis (or are shared), q_guesses is (B, T+1, nq).  Returns batched
-    (Solution, Stats, WarmStart)."""
+    (Solution, Stats, WarmStart).
+
+    ``horizon`` (a ``parallel.horizon.HorizonSplit``) shards the horizon
+    over a process group: each rank evaluates the physics of its own steps,
+    and cyclic reduction runs distributed.  Every rank then holds the same
+    gathered values and takes the same host decisions."""
     B = q_guesses.shape[0]
     check_supported(model)
     dtype, device = q_guesses.dtype, q_guesses.device
@@ -190,7 +208,7 @@ def solve_trust_region_batched(
     iters = torch.arange(K, device=device)
 
     def body(s: _LoopState, active) -> _LoopState:
-        prep = _prepare_batched(model, probs, params, s.q, s.D)
+        prep = _prepare_batched(model, probs, params, s.q, s.D, horizon)
         prep = _rescue_degraded_solves(params, prep)
         dq_scaled, dq, boundary_active = _dogleg(prep, s.Delta)
 
@@ -199,7 +217,7 @@ def solve_trust_region_batched(
         if params.normalize_quaternions:
             q_try = normalize_quaternions(model, q_try)
         merit_try, cost_try = _merit_at_batched(
-            model, probs, params, q_try, prep.lam
+            model, probs, params, q_try, prep.lam, horizon
         )
         Hdq = _lin_matvec(prep.H, dq_scaled)
         predicted = -_bsum(prep.g_merit * dq_scaled) - 0.5 * _bsum(
@@ -317,7 +335,8 @@ def solve_trust_region_batched(
             break
         s = _mask(active, body(s, active), s)
 
-    tau, v = rollout.generalized_forces(model, probs, params.contact, s.q)
+    tau, v = _forces(model, probs, params, s.q, horizon)
+
     def fl(f):
         return torch.full((B,), int(f), dtype=torch.int32, device=device)
 

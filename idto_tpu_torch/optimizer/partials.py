@@ -17,7 +17,6 @@ import torch
 
 from idto_tpu_torch.soa import contact as soa_contact
 from idto_tpu_torch.soa import kinematics as soa_kin
-from idto_tpu_torch.utils.consts import const
 
 
 class IdPartials(NamedTuple):
@@ -49,24 +48,26 @@ def _fd_steps(x, eps_pow):
     return (x + h) - x
 
 
-def id_partials_fd(model, prob, contact, qs, order: int = 1) -> IdPartials:
+def id_partials_fd(model, prob, contact, qs, order: int = 1,
+                   halo=False) -> IdPartials:
     """IdPartials of a batch qs (B, T+1, nq) by finite differences of
     ``step_tau`` (order 1, 2 or 4), with the boundary convention of
-    ``soa/partials.py``: (B, T, nv, nq) each, dtau_dqm[:, 0] = 0."""
-    B, Tp1, nq = qs.shape
-    T = Tp1 - 1
+    ``soa/partials.py``: (B, T, nv, nq) each, dtau_dqm[:, 0] = 0.  With
+    ``halo``, the steps of a slice of the horizon
+    (``soa/partials.py::step_triplets``)."""
+    from idto_tpu_torch.soa.partials import step_triplets
+
+    B, nq = qs.shape[0], qs.shape[2]
+    T = qs.shape[1] - (2 if halo else 1)
     nv = model.nv
     n = B * T
     dt = prob.dt
 
     # Triplets on a flat (b, t) instance axis; q_{t-1} at t = 0 is a dummy
     # copy of q_0 (its tau uses v_init and its dqm block is zero).
-    qm = torch.cat([qs[:, :1], qs[:, : T - 1]], dim=1).reshape(n, nq).T
-    qt = qs[:, :T].reshape(n, nq).T
-    qp = qs[:, 1:].reshape(n, nq).T
+    qm, qt, qp, is_t0 = step_triplets(qs, halo)
     trip = torch.stack([qm, qt, qp])  # (3 slots, nq, n)
     h = _fd_steps(trip, _FD_POW[order])
-    is_t0 = const(np.tile(np.arange(T), B) == 0, qs.device)
     v_init = prob.v_init.to(qs.dtype).reshape(-1, nv)[:, None, :].expand(
         B, T, nv).reshape(n, nv).T
 
@@ -108,9 +109,10 @@ def id_partials_fd(model, prob, contact, qs, order: int = 1) -> IdPartials:
     return IdPartials(unflat(dqm), unflat(J[:, 1]), unflat(J[:, 2]))
 
 
-def id_partials_for(model, prob, params, qs) -> IdPartials:
+def id_partials_for(model, prob, params, qs, halo=False) -> IdPartials:
     """The partials ``params.gradients_method`` asks for, for a batch qs
-    (B, T+1, nq)."""
+    (B, T+1, nq), or with ``halo`` for the steps of a slice of the horizon
+    (``soa/partials.py::step_triplets``)."""
     from idto_tpu_torch.optimizer.problem import GradientsMethod
     from idto_tpu_torch.soa import partials as soa_partials
 
@@ -121,8 +123,9 @@ def id_partials_for(model, prob, params, qs) -> IdPartials:
     }.get(params.gradients_method)
     if order is None:
         return soa_partials.id_partials_batched(model, prob, params.contact,
-                                                qs)
-    return id_partials_fd(model, prob, params.contact, qs, order=order)
+                                                qs, halo=halo)
+    return id_partials_fd(model, prob, params.contact, qs, order=order,
+                          halo=halo)
 
 
 def nplus_stack(model, qs):

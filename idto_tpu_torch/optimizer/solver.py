@@ -31,6 +31,7 @@ from idto_tpu_torch.optimizer.problem import (
     ScalingMethod,
     SolverParameters,
 )
+from idto_tpu_torch.parallel import horizon as parallel_horizon
 from idto_tpu_torch.soa import rollout
 from idto_tpu_torch.utils.consts import index
 from idto_tpu_torch.utils.structs import tensor_dataclass
@@ -214,13 +215,17 @@ def _hybrid_tail_rows(params: SolverParameters, n_rows: int) -> int:
     return 0 if mpow <= FUSED_MAX_ROWS else FUSED_MAX_ROWS
 
 
-def _sparse_factorize(params, Hs):
+def _sparse_factorize(params, Hs, horizon=None):
     """What ``_lin_solve`` takes for H.  The fused cyclic reduction does
     factorization and solve in one launch, so its 'factor' is the band matrix
     itself; level-wise cyclic reduction (with or without the kernel's tail)
-    and Thomas factor once for all solves of the iteration."""
+    and Thomas factor once for all solves of the iteration.  With the
+    horizon sharded (``horizon``, a ``parallel.horizon.HorizonSplit``),
+    cyclic reduction is the distributed one of ``parallel/horizon.py``."""
     if not _use_cr(params):
         return penta.factorize(Hs)
+    if horizon is not None:
+        return horizon.factorize(Hs)
     tail_rows = _hybrid_tail_rows(params, Hs.n)
     if tail_rows == 0:
         return Hs
@@ -241,6 +246,8 @@ def _lin_solve_many(factor, rhs_stack):
         return cr_kernel.solve_many(factor, rhs_stack)
     if isinstance(factor, cyclic_reduction.CRFactorization):
         return cyclic_reduction.solve_factorized(factor, rhs_stack)
+    if isinstance(factor, parallel_horizon.ShardedCRFactor):
+        return parallel_horizon.solve_factorized_sharded(factor, rhs_stack)
     return penta.solve_factorized_many(factor, rhs_stack)
 
 
@@ -368,6 +375,8 @@ def _factor_status(factor, B, device):
         return torch.ones(B, dtype=torch.bool, device=device)
     if isinstance(factor, cyclic_reduction.CRFactorization):
         return cyclic_reduction.factorization_status(factor)
+    if isinstance(factor, parallel_horizon.ShardedCRFactor):
+        return factor.ok
     return penta.factorization_status(factor)
 
 
@@ -384,11 +393,13 @@ def _scaled(H, g, params, D_prev, diag):
 
 def _prepare_from_physics(
     model, prob, params: SolverParameters, q, D_prev, cost, v, tau, parts,
-    nplus,
+    nplus, horizon=None,
 ) -> _Prepared:
     """Gradient and Hessian assembly, scaling, factorization, the
     constraint Schur solve, the Newton solve with its per-scenario
-    containment, and the Cauchy step, from already evaluated physics."""
+    containment, and the Cauchy step, from already evaluated physics.
+    ``horizon`` routes cyclic reduction through the distributed solve
+    (``_sparse_factorize``)."""
     B = q.shape[0]
     g = gradient_from_partials(model, prob, parts, nplus, q, v, tau)
     if _use_dense(params):
@@ -403,7 +414,7 @@ def _prepare_from_physics(
     else:
         H = gauss_newton_hessian(model, prob, parts, nplus)
         D, Hs, gs = _scaled(H, g, params, D_prev, penta.extract_diagonal(H))
-        factor = _sparse_factorize(params, Hs)
+        factor = _sparse_factorize(params, Hs, horizon)
 
     unact = model.unactuated_vdofs
     if params.equality_constraints and prob.num_steps * len(unact) > 0:

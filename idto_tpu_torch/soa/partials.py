@@ -41,25 +41,43 @@ def _jac_rows(f, x, dim):
     return vmap(one)(eye)
 
 
-def id_partials_batched(model: Model, prob, contact_params, qs) -> IdPartials:
+def step_triplets(qs, halo=False):
+    """(q_{t-1}, q_t, q_{t+1}) of every step, each (nq, B*T) on the flat
+    instance axis (b, t) -> b*T + t, and the (B*T,) mask of t = 0.  qs is
+    (B, T+1, nq); q_{t-1} at t = 0 is a dummy copy of q_0.  With ``halo``
+    qs holds q_{lo-1}..q_hi of a slice of the horizon (lo > 0): its steps
+    lo..hi-1, none of them t = 0."""
+    B, nq = qs.shape[0], qs.shape[2]
+    T = qs.shape[1] - (2 if halo else 1)
+    n = B * T
+    if halo:
+        qm = qs[:, :T]
+    else:
+        qm = torch.cat([qs[:, :1], qs[:, : T - 1]], dim=1)
+    qt = qs[:, qs.shape[1] - T - 1 : -1]
+    qp = qs[:, qs.shape[1] - T :]
+    is_t0 = const(np.tile(np.arange(T), B) == (-1 if halo else 0),
+                  qs.device)
+    return (qm.reshape(n, nq).T, qt.reshape(n, nq).T, qp.reshape(n, nq).T,
+            is_t0)
+
+
+def id_partials_batched(model: Model, prob, contact_params, qs,
+                        halo=False) -> IdPartials:
     """Exact partials for a batch of trajectories qs (B, T+1, nq).  Returns
     IdPartials of (B, T, nv, nq) tensors.  Only dt / v_init are read from
-    ``prob``, whose tensors may be batched (B, ...) or shared."""
-    B, Tp1, nq = qs.shape
-    T = Tp1 - 1
+    ``prob``, whose tensors may be batched (B, ...) or shared.  With
+    ``halo``, the steps of a slice of the horizon (``step_triplets``)."""
+    B, nq = qs.shape[0], qs.shape[2]
+    T = qs.shape[1] - (2 if halo else 1)
     nv = model.nv
     n = B * T
     dtype, device = qs.dtype, qs.device
     dt = prob.dt
 
-    # Flat instance axis (b, t) -> b*T + t.  The triplet for step t is
-    # (q_{t-1}, q_t, q_{t+1}); q_{t-1} at t = 0 is a dummy copy of q_0
-    # whose contributions are masked out below.
-    qm = torch.cat([qs[:, :1], qs[:, 0 : T - 1]], dim=1).reshape(n, nq).T
-    qt = qs[:, 0:T].reshape(n, nq).T
-    qp = qs[:, 1 : T + 1].reshape(n, nq).T
-
-    is_t0 = const(np.tile(np.arange(T), B) == 0, device)
+    # The triplet for step t is (q_{t-1}, q_t, q_{t+1}); the dummy q_{t-1}
+    # at t = 0 contributes nothing (masked below).
+    qm, qt, qp, is_t0 = step_triplets(qs, halo)
 
     v_init = prob.v_init.to(dtype).reshape(-1, nv)[:, None, :].expand(
         B, T, nv

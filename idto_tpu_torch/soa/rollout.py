@@ -14,8 +14,11 @@ from idto_tpu_torch.soa import contact as soa_contact
 from idto_tpu_torch.soa import kinematics as soa_kin
 
 
-def velocities(model: Model, prob, qs):
-    """v_t = N^+(q_t)(q_t - q_{t-1})/dt, v_0 = v_init: (B, T+1, nv)."""
+def velocities(model: Model, prob, qs, halo=False):
+    """v_t = N^+(q_t)(q_t - q_{t-1})/dt, v_0 = v_init: (B, T+1, nv).
+
+    With ``halo``, qs holds the knots q_{lo-1}..q_hi of a slice of the
+    horizon (lo > 0) and the result is v_lo..v_hi: (B, hi - lo + 1, nv)."""
     B, Tp1, nq = qs.shape
     T = Tp1 - 1
     dt = prob.dt
@@ -23,22 +26,27 @@ def velocities(model: Model, prob, qs):
     q_next = qs[:, 1:].reshape(B * T, nq).T
     v_rest = soa_kin.qdot_to_v(model, q_next, (q_next - q_prev) / dt)
     v_rest = v_rest.reshape(model.nv, B, T).permute(1, 2, 0)
+    if halo:
+        return v_rest
     v0 = prob.v_init.to(qs.dtype).reshape(-1, model.nv)[:, None].expand(
         B, 1, model.nv
     )
     return torch.cat([v0, v_rest], dim=1)
 
 
-def generalized_forces(model: Model, prob, contact_params, qs, v=None):
-    """(tau (B, T, nv), v (B, T+1, nv)); reuses v when given."""
-    B, Tp1, nq = qs.shape
-    T = Tp1 - 1
-    nv = model.nv
+def generalized_forces(model: Model, prob, contact_params, qs, v=None,
+                       halo=False):
+    """(tau (B, T, nv), v (B, T+1, nv)); reuses v when given.  With
+    ``halo`` (see ``velocities``) the steps lo..hi-1 of a slice of the
+    horizon: tau (B, hi - lo, nv), v (B, hi - lo + 1, nv)."""
+    B = qs.shape[0]
+    nq, nv = model.nq, model.nv
     dt = prob.dt
     if v is None:
-        v = velocities(model, prob, qs)
+        v = velocities(model, prob, qs, halo=halo)
+    T = v.shape[1] - 1
     a = (v[:, 1:] - v[:, :-1]) / dt
-    q_next = qs[:, 1:].reshape(B * T, nq).T
+    q_next = qs[:, qs.shape[1] - T:].reshape(B * T, nq).T
     v_next = v[:, 1:].reshape(B * T, nv).T
     a_flat = a.reshape(B * T, nv).T
     tau = soa_contact.step_tau(model, contact_params, q_next, v_next, a_flat)

@@ -37,6 +37,20 @@ on the CPU).  The q guesses are the example's guess plus 0.01 * N(0, 1)
 noise from ``np.random.default_rng(0)``, with q_0 pinned to q_init; they
 are stored in the file, so the test reads nothing else of the JAX side.
 
+The parallel layer (tests/test_torch_parallel.py), on the JAX package's
+eight virtual CPU devices: ``horizon`` writes
+goldens/torch_horizon_systems.npz (``solve_sharded`` of the random SPD
+systems of tests/test_penta.py at (n, k) = (33, 4), (64, 2), (100, 5),
+(161, 3), seeded n + k as tests/test_horizon.py seeds them, on meshes of 1,
+2 and 4 devices) and goldens/torch_horizon_pendulum.npz
+(``solve_trust_region_horizon_sharded`` on tests/test_horizon.py's
+pendulum at T=31, cyclic reduction, 10 iterations, on the same meshes);
+``sharded`` writes goldens/torch_sharded_pendulum.npz
+(``solve_batch_sharded`` of tests/test_parallel.py's ``_setup(8)`` batch on
+eight devices) and goldens/torch_sharded_spinner.npz
+(``multihost.solve_batch_global`` on the spinner in test mode at B=8, q_init
+and the guesses moved by 0.01 N(0, 1) from ``np.random.default_rng(0)``).
+
 Run from the repo root:  python scripts/make_torch_goldens.py [which ...]
 with ``which`` among slice, constraints, mpc, fleet, closed_loop, dynamics,
 partials (default: all; a few minutes each on a CPU: the Pallas interpreter and the
@@ -48,6 +62,11 @@ import sys
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
+
+# Eight virtual CPU devices for the parallel layer's meshes (as
+# tests/conftest.py gives the JAX package's tests); read when JAX starts.
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                           + " --xla_force_host_platform_device_count=8")
 
 import jax
 
@@ -733,6 +752,92 @@ def scene_convex():
     _save("scene_convex", qs=qs, scene=np.array(json.dumps(scene)))
 
 
+# -- goldens of the parallel layer (tests/test_torch_parallel.py) --------
+
+HORIZON_SYSTEMS = ((33, 4), (64, 2), (100, 5), (161, 3))
+HORIZON_MESHES = (1, 2, 4)
+HORIZON_T = 31
+HORIZON_ITERS = 10
+
+
+def horizon():
+    """``solve_sharded`` on random SPD systems and the horizon-sharded
+    trust-region solve of the pendulum, on meshes of 1, 2 and 4 devices."""
+    from idto_tpu.optimizer.problem import (
+        SolverParameters,
+        linear_interp_nominal,
+    )
+    from idto_tpu.parallel.batching import make_mesh
+    from idto_tpu.parallel.horizon import (
+        solve_sharded,
+        solve_trust_region_horizon_sharded,
+    )
+    from tests.test_optimizer import pendulum_problem
+    from tests.test_penta import random_spd_penta
+
+    out = {}
+    for n, k in HORIZON_SYSTEMS:
+        rng = np.random.default_rng(n + k)
+        H, _ = random_spd_penta(n, k, rng)
+        b = rng.standard_normal((n, k))
+        tag = f"n{n}_k{k}_"
+        out.update({tag + f: np.asarray(getattr(H, f)) for f in "ABCDE"})
+        out[tag + "b"] = b
+        for nP in HORIZON_MESHES:
+            out[tag + f"x_P{nP}"] = np.asarray(solve_sharded(
+                H, jnp.asarray(b), make_mesh(nP, axis="horizon")))
+    _save("horizon_systems", **out)
+
+    model, prob = pendulum_problem(T=HORIZON_T)
+    params = SolverParameters(
+        max_iterations=HORIZON_ITERS, scaling=True,
+        equality_constraints=False,
+        linear_solver=LinearSolverType.CYCLIC_REDUCTION,
+    )
+    q_guess = jnp.asarray(linear_interp_nominal([0.1], [0.1], HORIZON_T))
+    out = {"q_guess": np.asarray(q_guess)}
+    for nP in HORIZON_MESHES:
+        mesh = make_mesh(nP, axis="horizon")
+        sol, stats, _ = jax.jit(
+            lambda qg: solve_trust_region_horizon_sharded(
+                model, prob, params, qg, mesh))(q_guess)
+        out.update({f"P{nP}_q": np.asarray(sol.q),
+                    f"P{nP}_tau": np.asarray(sol.tau),
+                    f"P{nP}_cost": np.asarray(stats.cost),
+                    f"P{nP}_num_iters": np.asarray(stats.num_iters)})
+    _save("horizon_pendulum", **out)
+
+
+def sharded():
+    """``solve_batch_sharded`` of the pendulum batch and
+    ``solve_batch_global`` of the spinner batch, on eight devices."""
+    from idto_tpu.parallel import multihost
+    from idto_tpu.parallel.batching import make_mesh, solve_batch_sharded
+    from tests.test_parallel import _setup
+
+    model, prob, params, probs, qg, targets = _setup(8)
+    sol, stats, _, mean_cost = jax.jit(
+        lambda p, q: solve_batch_sharded(model, p, params, q, make_mesh(8))
+    )(probs, qg)
+    _save("sharded_pendulum", q_nom=np.asarray(probs.q_nom),
+          q_guess=np.asarray(qg), q=np.asarray(sol.q),
+          cost=np.asarray(stats.cost), num_iters=np.asarray(stats.num_iters),
+          mean_cost=np.asarray(mean_cost))
+
+    model, _, prob, params, q_guess = load_example("spinner", test_mode=True)
+    batch = 8
+    dq = 0.01 * np.random.default_rng(0).standard_normal((batch, model.nq))
+    probs = broadcast_problem(prob, batch)
+    probs = probs.replace(q_init=probs.q_init + dq)
+    qgs = np.asarray(q_guess)[None] + dq[:, None, :]
+    sol, stats, _, mean_cost = multihost.solve_batch_global(
+        model, probs, params, jnp.asarray(qgs),
+        multihost.make_global_mesh(sp=1))
+    _save("sharded_spinner", dq=dq, q=np.asarray(sol.q),
+          cost=np.asarray(stats.cost), num_iters=np.asarray(stats.num_iters),
+          mean_cost=np.asarray(mean_cost))
+
+
 def main(argv):
     which = argv or ["slice", "constraints", "mpc", "fleet", "closed_loop",
                      "dynamics", "partials"]
@@ -792,6 +897,10 @@ def main(argv):
         scene_convex()
     if "wrenches" in which:
         geometry_wrenches()
+    if "horizon" in which:
+        horizon()
+    if "sharded" in which:
+        sharded()
 
 
 if __name__ == "__main__":

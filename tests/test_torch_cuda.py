@@ -3,8 +3,8 @@ kernel against its plain PyTorch version (one and many right-hand sides, the
 hybrid's tail), and the cheetah slice, the constrained hopper solve, the
 cheetah replan chain, the six manipulation examples and the spinner's closed
 loop on the card against the JAX package's golden solves; the capsule pair
-kernels and a simulator step on the card against the CPU.  Without a card
-they skip.
+kernels and a simulator step on the card against the CPU; ``solve_sharded``
+on an NCCL group of one.  Without a card they skip.
 
 This file imports neither JAX nor ``idto_tpu``, so it also runs where JAX is
 not installed:
@@ -575,3 +575,31 @@ def test_timing_helpers_on_card(cuda):
     x = torch.ones(256, 256, dtype=torch.float64, device=cuda)
     assert timing.time_fn(lambda a: a @ a, [(x,)], reps=3) > 0.0
     assert timing.time_throughput(lambda a: a @ a, [(x,)], calls=3) > 0.0
+
+
+@pytest.mark.cuda
+def test_solve_sharded_world_size_one_on_nccl(cuda):
+    """``solve_sharded`` on an NCCL group of one (the port's default
+    backend for the card) against a dense solve, and one NCCL all_gather
+    through the mesh's axis."""
+    import torch.distributed as dist
+
+    from idto_tpu_torch.parallel import multihost
+    from idto_tpu_torch.parallel.batching import make_mesh
+    from idto_tpu_torch.parallel.horizon import solve_sharded
+
+    rng = np.random.default_rng(161)
+    bands, dense = _random_spd_penta(2, 41, 3, rng)
+    H = penta.PentaBands(**{name: torch.as_tensor(x, device=cuda)
+                            for name, x in bands.items()})
+    b = rng.standard_normal((2, 41, 3))
+    mesh = make_mesh(axis="horizon", device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        x = solve_sharded(H, torch.as_tensor(b, device=cuda), mesh)
+        gathered = multihost.axis_group(mesh, "horizon").gather(x)
+    finally:
+        dist.destroy_process_group()
+    xd = np.linalg.solve(dense, b.reshape(2, -1, 1)).reshape(b.shape)
+    assert _rel(x.cpu(), xd) < 1e-9
+    assert torch.equal(gathered, x)

@@ -160,5 +160,7 @@ def test_port_imports_neither_jax_nor_reference():
                  "idto_tpu_torch.utils.timing", "idto_tpu_torch.ops.cr_kernel",
                  "idto_tpu_torch.mpc.runner", "idto_tpu_torch.utils.playback",
                  "idto_tpu_torch.utils.liveview", "idto_tpu_torch.soa.convex",
-                 "idto_tpu_torch.models.mesh", "idto_tpu_torch.models.sdf"):
+                 "idto_tpu_torch.models.mesh", "idto_tpu_torch.models.sdf",
+                 "idto_tpu_torch.parallel.horizon",
+                 "idto_tpu_torch.parallel.multihost"):
         assert name in out["names"], name
