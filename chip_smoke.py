@@ -115,7 +115,13 @@ exits non-zero without the final result line:
                  per-rank iteration at world size 1 and 2, the horizon
                  solve's and the horizon-sharded iteration's time in
                  collectives.  A failure of either rank fails the phase.
- 12. times    -- one solve iteration at several batch sizes; the kernel,
+ 12. bench    -- ``bench_torch.run`` (the port's benchmark entry) at
+                 batches 1 and 8, 2 timed calls, 3 replans, float64, once
+                 with Thomas and once with cyclic reduction: every key of
+                 its result line present and finite, no kernel launch with
+                 Thomas and one a solve with cyclic reduction, and the B=8
+                 q of each against the same chain of calls on the CPU.
+ 13. times    -- one solve iteration at several batch sizes; the kernel,
                  the whole ``solve_many`` call, the plain version and a
                  dense library solve at the cheetah shape, with CUDA
                  events, beside the least time the card could take; the
@@ -309,6 +315,25 @@ PARALLEL_RTOL = 1e-9
 WHOLE_BATCH_RTOL = 1e-3
 HORIZON_CHEETAH_RTOL = 1e-5
 PARALLEL_DEADLINE = 300  # seconds the two ranks may take, start included
+
+# The bench phase: ``bench_torch.run`` cut to batches 1 and 8, two timed
+# calls and three replans.  Card against CPU on the B=8 q after its three
+# chained one-iteration solves: Thomas 1e-8 (SLICE_RTOL; measured 5.3e-12);
+# cyclic reduction 1e-6 (measured 1.2e-7: the cheetah's iterates have
+# condition ~1e10, and the kernel and the plain version reduce in another
+# order).
+BENCH_BATCHES = (1, 8)
+BENCH_ITERS = 2
+BENCH_REPLANS = 3
+BENCH_SOLVERS = ("penta_lu", "cyclic_reduction")
+BENCH_RTOL = {"penta_lu": 1e-8, "cyclic_reduction": 1e-6}
+# Keys of the bench's result line that hold numbers at every batch run.
+BENCH_KEYS = ("latency_ms_batch1", "flops_per_solve", "measured_tflops",
+              "mpc_replan_ms", "value", "vs_baseline",
+              "latency_vs_60hz_budget", "power_limit_w", "chunk",
+              "cr_kernel_launches")
+BENCH_BATCH_KEYS = ("newton_share_batch{}", "peak_gib_batch{}",
+                    "rescue_share_batch{}")
 
 # Peak rates of one H100 SXM (NVIDIA H100 data sheet): HBM3 bandwidth;
 # float64 on the tensor cores and on the FMA pipes; float32 on the FMA
@@ -2361,6 +2386,69 @@ def phase_times(seed, reps):
     return at_main
 
 
+def phase_bench(seed):
+    """``bench_torch.run`` on the card, once a linear solver; returns
+    {"bench_<solver>": launches} and {solver: its result line}."""
+    import math
+
+    import torch
+
+    import bench_torch
+
+    launches, results = {}, {}
+    for solver in BENCH_SOLVERS:
+        t0 = time.perf_counter()
+        result, last_q = bench_torch.run(
+            solver, "float64", "cuda", seed, BENCH_BATCHES, BENCH_ITERS,
+            BENCH_REPLANS)
+        seconds = time.perf_counter() - t0
+        numbers = (list(BENCH_KEYS)
+                   + [k.format(b) for k in BENCH_BATCH_KEYS
+                      for b in BENCH_BATCHES]
+                   + [f"solves_per_s_batch{b}" for b in BENCH_BATCHES
+                      if b > 1])
+        missing = [k for k in ["metric", "unit", "device", "dtype",
+                               "linear_solver"] + numbers
+                   if k not in result]
+        if missing:
+            raise AssertionError(f"bench {solver}: keys missing {missing}")
+        bad = [k for k in numbers if not (
+            isinstance(result[k], (int, float))
+            and math.isfinite(result[k]))]
+        if bad:
+            raise AssertionError(f"bench {solver}: not a finite number: "
+                                 + ", ".join(f"{k}={result[k]}"
+                                             for k in bad))
+        n = result["cr_kernel_launches"]
+        # A launch a solve: the warm and timed calls at each batch, the
+        # counted call, mpc_initialize, the warm replan and the replans.
+        want = (0 if solver == "penta_lu" else
+                len(BENCH_BATCHES) * (BENCH_ITERS + 1) + 1
+                + BENCH_REPLANS + 2)
+        if n != want:
+            raise AssertionError(f"bench {solver}: {n} kernel launches, "
+                                 f"expected {want}")
+        # The same chain of calls at B=8 on the CPU.
+        batch = max(BENCH_BATCHES)
+        model, _, prob, params, q_guess = bench_torch.load(
+            solver, "float64", "cpu")
+        probs, qg = bench_torch.batch_inputs(prob, q_guess, batch, seed)
+        _, _, out_c, _, _ = bench_torch.measure_batch(
+            bench_torch.make_step(model, params), probs, qg, BENCH_ITERS,
+            "cpu")
+        err = rel_err(last_q[batch].cpu(), out_c[0])
+        log("bench", f"{solver}: {seconds:.1f} s, {n} kernel launches, "
+                     f"B={batch} q card vs CPU {err:.3e} (tol "
+                     f"{BENCH_RTOL[solver]:g}); {json.dumps(result)}")
+        if not err <= BENCH_RTOL[solver]:
+            raise AssertionError(f"bench {solver}: card and CPU disagree")
+        launches[f"bench_{solver}"] = n
+        results[solver] = result
+        del last_q
+        torch.cuda.empty_cache()
+    return launches, results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2368,7 +2456,8 @@ def main(argv=None):
     ap.add_argument("--only", default=None, metavar="PHASE",
                     help="after the device and build phases run this one "
                          "phase (kernel, slice, constraints, mpc, fleet, "
-                         "closed_loop, options, geometry, parallel, times) "
+                         "closed_loop, options, geometry, parallel, bench, "
+                         "times) "
                          "and stop "
                          "without the result lines")
     args = ap.parse_args(argv)
@@ -2388,6 +2477,7 @@ def main(argv=None):
             "options": lambda: phase_options(args.seed),
             "geometry": lambda: phase_geometry(args.seed),
             "parallel": lambda: phase_parallel(args.seed),
+            "bench": lambda: phase_bench(args.seed),
             "times": lambda: phase_times(args.seed, REPS),
         }[args.only]
         phase()
@@ -2422,6 +2512,9 @@ def main(argv=None):
     parallel_launches, parallel_numbers = timed_phase(
         "parallel", lambda: phase_parallel(args.seed))
     by_path.update(parallel_launches)
+    bench_launches, bench_results = timed_phase(
+        "bench", lambda: phase_bench(args.seed))
+    by_path.update(bench_launches)
     times = timed_phase("times", lambda: phase_times(args.seed, REPS))
 
     print(smi, flush=True)
@@ -2454,6 +2547,9 @@ def main(argv=None):
         # (NCCL) and 2 (gloo on one card), the horizon-sharded cheetah at
         # T=159 and the share of its collectives.
         "parallel": parallel_numbers,
+        # The bench phase: bench_torch's result lines at batches 1 and 8
+        # (float64), by linear solver.
+        "bench": bench_results,
         # Host seconds of each phase of this run.
         "phase_seconds": seconds,
     }]}), flush=True)

@@ -110,6 +110,12 @@ def _empty_stats(B, max_iters, dtype, device):
     )
 
 
+# Scenarios whose cyclic-reduction Newton step failed the residual
+# acceptance and went to the Thomas rescue, since import (or since reset by
+# the caller).
+rescued = 0
+
+
 def _forces(model, probs, params, qs, horizon):
     """(tau, v) of the whole horizon; with ``horizon`` (a
     ``parallel.horizon.HorizonSplit``) each rank evaluates its own steps and
@@ -161,6 +167,8 @@ def _rescue_degraded_solves(params: SolverParameters, prep):
     # Host sync: the batch-level branch reads one flag from the device.
     if not bool(torch.any(~prep.solve_ok)):
         return prep
+    global rescued
+    rescued += int((~prep.solve_ok).sum())
     factor = penta.factorize(prep.H)
     alt = _newton_tail(
         prep.cost, prep.D, prep.H, prep.gs, prep.h, prep.Js, factor,

@@ -66,3 +66,30 @@ def time_throughput(fn: Callable, inputs: Sequence[tuple], calls: int = 10,
             fn(*inputs[r % len(inputs)])
 
     return _seconds(chain, (), device) / calls
+
+
+def time_chain(fn: Callable, out, calls: int, device=None):
+    """``calls`` chained calls ``out = fn(i, out)``, each taking what the
+    one before it returned, with one wait at the end: on the GPU a CUDA
+    event is recorded before the first call and after each call, on the CPU
+    the host clock is read there.  Returns (seconds of the whole chain,
+    [seconds of each call], the last call's output)."""
+    cuda = _on_cuda(device)
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    marks = [mark()]
+    for i in range(calls):
+        out = fn(i, out)
+        marks.append(mark())
+    if cuda:
+        marks[-1].synchronize()
+        seconds = [1e-3 * a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    else:
+        seconds = [b - a for a, b in zip(marks, marks[1:])]
+    return sum(seconds), seconds, out

@@ -51,6 +51,13 @@ eight devices) and goldens/torch_sharded_spinner.npz
 (``multihost.solve_batch_global`` on the spinner in test mode at B=8, q_init
 and the guesses moved by 0.01 N(0, 1) from ``np.random.default_rng(0)``).
 
+The measurement entry points (tests/test_torch_bench.py): ``bench``
+writes goldens/torch_bench_cheetah.npz (``bench.py``'s step on
+``bench_torch.py``'s seeded inputs, B=2, two chained calls) and
+``f32_accept`` writes goldens/torch_f32_accept.npz (the scaled systems of
+``scripts/bench_f32_accept.py`` at its six iterates, with the level-wise
+cyclic reduction's error against a dense solve).
+
 Run from the repo root:  python scripts/make_torch_goldens.py [which ...]
 with ``which`` among slice, constraints, mpc, fleet, closed_loop, dynamics,
 partials (default: all; a few minutes each on a CPU: the Pallas interpreter and the
@@ -838,6 +845,124 @@ def sharded():
           mean_cost=np.asarray(mean_cost))
 
 
+def bench_cheetah():
+    """``bench.py``'s step on ``bench_torch.py``'s inputs: mini_cheetah at
+    its YAML settings (scan-Thomas) cut to one iteration without the
+    convergence test, B=2 scenarios whose q_init and guess (at every knot)
+    move by 0.01 N(0, 1) from ``np.random.default_rng(0)``; two chained
+    calls of ``solve_batch`` (the second from the first's q), with q, the
+    iteration's cost and its trust ratio of each."""
+    batch = 2
+    model, _, prob, params, q_guess = load_example("mini_cheetah")
+    params = params.replace(max_iterations=1, check_convergence=False)
+    dq = 0.01 * np.random.default_rng(0).standard_normal((batch, model.nq))
+    probs = broadcast_problem(prob, batch)
+    probs = probs.replace(q_init=probs.q_init + dq)
+    qg = np.asarray(q_guess)[None] + dq[:, None]
+
+    @jax.jit
+    def step(p, q):
+        sol, stats, _ = solve_batch(model, p, params, q)
+        return sol.q, stats.cost[:, 0], stats.rho[:, 0]
+
+    q1, cost1, rho1 = step(probs, jnp.asarray(qg))
+    q2, cost2, rho2 = step(probs, q1)
+    _save("bench_cheetah", dq=dq, q_guess=qg, q1=np.asarray(q1),
+          cost1=np.asarray(cost1), rho1=np.asarray(rho1), q2=np.asarray(q2),
+          cost2=np.asarray(cost2), rho2=np.asarray(rho2))
+
+
+def _refined_dense_solve(Hd, b, refinements=3):
+    """A float64 dense solve refined with residuals in numpy's extended
+    precision: good to about float64 rounding at condition ~1e10."""
+    x = np.linalg.solve(Hd, b)
+    H_ext, b_ext = Hd.astype(np.longdouble), b.astype(np.longdouble)
+    for _ in range(refinements):
+        r = b_ext - H_ext @ x.astype(np.longdouble)
+        x = x + np.linalg.solve(Hd, r.astype(np.float64))
+    return x
+
+
+def f32_accept():
+    """``scripts/bench_f32_accept.py``'s systems in float64: the scaled
+    (H~, g~) the solver factors at three iterates each of mini_cheetah and
+    spinner (the guess, the guess plus 0.01 N(0, 1) from one
+    ``np.random.default_rng(0)`` drawn for the cheetah first, and a
+    4-iteration ``solve_trust_region``), and at each the level-wise cyclic
+    reduction's relative 2-norm error on H~ x = -g~ against a refined dense
+    solve, on the system and on eight copies of it within its rounding
+    (``perturbed_bands`` of scripts/bench_torch_f32_accept.py, seeded by
+    the example's and the iterate's index)."""
+    from idto_tpu.ops import cyclic_reduction, penta
+    from idto_tpu.optimizer import trajectory
+    from idto_tpu.optimizer.hessian import (
+        gauss_newton_hessian,
+        gradient_from_partials,
+    )
+    from idto_tpu.optimizer.partials import id_partials_for, nplus_stack
+    from idto_tpu.optimizer.solver import (
+        _scale_factors_from_diag,
+        solve_trust_region,
+    )
+
+    def scaled_system(model, prob, params, q):
+        contact = params.contact
+        v = trajectory.velocities(model, prob, q)
+        a = trajectory.accelerations(prob, v)
+        tau = jax.vmap(
+            lambda qn, vn, an: trajectory.step_tau(model, contact, qn, vn, an)
+        )(q[1:], v[1:], a)
+        parts = id_partials_for(model, prob, params, q)
+        npl = nplus_stack(model, q)
+        g = gradient_from_partials(model, prob, parts, npl, q, v, tau)
+        H = gauss_newton_hessian(model, prob, parts, npl)
+        D = _scale_factors_from_diag(
+            penta.extract_diagonal(H), params.scaling_method,
+            jnp.ones_like(q))
+        return penta.scale_by_diagonal(H, D), D * g
+
+    sys.path.insert(0, os.path.join(_REPO, "scripts"))
+    from bench_torch_f32_accept import PERTURBED_COPIES, perturbed_bands
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for e, name in enumerate(("mini_cheetah", "spinner")):
+        model, _, prob, params, q_guess = load_example(name)
+        params = params.replace(max_iterations=4, check_convergence=False)
+        sol, _, _ = jax.jit(
+            lambda qg: solve_trust_region(model, prob, params, qg))(q_guess)
+        q0 = np.asarray(q_guess)
+        iterates = [q0, q0 + 0.01 * rng.standard_normal(q0.shape),
+                    np.asarray(sol.q)]
+        sys_fn = jax.jit(lambda q: scaled_system(model, prob, params, q))
+        cr = jax.jit(cyclic_reduction.solve)
+        for i, q in enumerate(iterates):
+            Hs, gs = sys_fn(jnp.asarray(q))
+            key = f"{name}_{i}"
+            out[f"{key}_q"] = q
+            bands = {b: np.asarray(getattr(Hs, b)) for b in "ABCDE"}
+            for band in "ABCDE":
+                out[f"{key}_{band}"] = bands[band]
+            out[f"{key}_g"] = np.asarray(gs)
+            # The system and its rounding-level copies, seeded by (e, i).
+            copies = np.random.default_rng([e, i])
+            errs = []
+            for c in range(1 + PERTURBED_COPIES):
+                bc = bands if c == 0 else perturbed_bands(bands, copies)
+                Hc = penta.PentaBands(**{b: jnp.asarray(x)
+                                         for b, x in bc.items()})
+                x_dense = _refined_dense_solve(
+                    np.asarray(penta.to_dense(Hc)),
+                    -np.asarray(gs).reshape(-1))
+                x_cr = np.asarray(cr(Hc, -gs)).reshape(-1)
+                errs.append(np.linalg.norm(x_cr - x_dense)
+                            / np.linalg.norm(x_dense))
+            out[f"{key}_cr_errs"] = np.asarray(errs)
+            print(f"{key}: CR error against dense {errs[0]:.3e}, median "
+                  f"over the copies {np.median(errs):.3e}")
+    _save("f32_accept", **out)
+
+
 def main(argv):
     which = argv or ["slice", "constraints", "mpc", "fleet", "closed_loop",
                      "dynamics", "partials"]
@@ -901,6 +1026,10 @@ def main(argv):
         horizon()
     if "sharded" in which:
         sharded()
+    if "bench" in which:
+        bench_cheetah()
+    if "f32_accept" in which:
+        f32_accept()
 
 
 if __name__ == "__main__":

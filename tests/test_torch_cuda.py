@@ -4,7 +4,8 @@ hybrid's tail), and the cheetah slice, the constrained hopper solve, the
 cheetah replan chain, the six manipulation examples and the spinner's closed
 loop on the card against the JAX package's golden solves; the capsule pair
 kernels and a simulator step on the card against the CPU; ``solve_sharded``
-on an NCCL group of one.  Without a card they skip.
+on an NCCL group of one; ``bench_torch.run`` at a small size against the
+JAX bench step's golden.  Without a card they skip.
 
 This file imports neither JAX nor ``idto_tpu``, so it also runs where JAX is
 not installed:
@@ -603,3 +604,27 @@ def test_solve_sharded_world_size_one_on_nccl(cuda):
     xd = np.linalg.solve(dense, b.reshape(2, -1, 1)).reshape(b.shape)
     assert _rel(x.cpu(), xd) < 1e-9
     assert torch.equal(gathered, x)
+
+
+@pytest.mark.cuda
+def test_bench_on_card_matches_golden(cuda):
+    """``bench_torch.run`` at batches 1 and 2, one timed call, on the card:
+    with Thomas, the B=2 chain's q against the JAX ``bench.py`` step's
+    (goldens/torch_bench_cheetah.npz) and no kernel launch; with cyclic
+    reduction, one launch a solve (two calls at each batch, the counted
+    call, ``mpc_initialize``, the warm replan and one replan) and q within
+    1e-6 of the golden (cyclic reduction against Thomas on the cheetah's
+    ill-conditioned iterates: 7.5e-8 on the CPU, 1.2e-7 card against CPU
+    in chip_smoke.py's bench phase)."""
+    import bench_torch
+
+    ref = np.load(os.path.join(os.path.dirname(_GOLDEN),
+                               "torch_bench_cheetah.npz"))
+    for solver, tol, launches in (("penta_lu", 1e-8, 0),
+                                  ("cyclic_reduction", 1e-6, 8)):
+        result, last_q = bench_torch.run(solver, "float64", "cuda", 0,
+                                         (1, 2), 1, 1)
+        assert result["cr_kernel_launches"] == launches
+        assert result["newton_share_batch2"] == 1.0
+        assert result["peak_gib_batch2"] > 0
+        assert _rel(last_q[2].cpu(), ref["q2"]) < tol
