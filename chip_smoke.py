@@ -121,7 +121,21 @@ exits non-zero without the final result line:
                  its result line present and finite, no kernel launch with
                  Thomas and one a solve with cyclic reduction, and the B=8
                  q of each against the same chain of calls on the CPU.
- 13. times    -- one solve iteration at several batch sizes; the kernel,
+ 13. reference -- the per-problem (AoS) pipeline on the cheetah at its YAML
+                 size, float64: the kernel at this phase's B=1 shapes
+                 against its plain version; (a) kinematics, dynamics,
+                 contact wrenches, step_tau and the exact partials of the
+                 AoS modules against the SoA layer on the card and against
+                 the CPU; (b) ``solve_trust_region``, 3 iterations, with
+                 Thomas and with cyclic reduction (a launch an iteration),
+                 against the batch-native ``solve`` at B=1, their ms an
+                 iteration, and launches and synchronizations an iteration
+                 from the profiler; (c) ``solve_batch(native=False)`` on the
+                 constrained hopper at B=4 (the R=121 and R=1 launches of
+                 each scenario) against ``native=True``; (d) the hull pad's
+                 pair through the AoS ``signed_distance`` against the SoA
+                 kernel, beyond the AoS answer's own rounding spread.
+ 14. times    -- one solve iteration at several batch sizes; the kernel,
                  the whole ``solve_many`` call, the plain version and a
                  dense library solve at the cheetah shape, with CUDA
                  events, beside the least time the card could take; the
@@ -344,6 +358,38 @@ PEAK_FLOPS = {
     4: {"FMA pipes": 66.9e12},
 }
 SLICE_BATCH = 256
+# The reference phase: the per-problem (AoS) pipeline on the cheetah at
+# its YAML size.  REFERENCE_STATES seeded states for the physics; AoS
+# against SoA (and card against CPU) to PHYSICS_RTOL, the partials to
+# PARTIALS_RTOL.  The per-problem solve against the batch-native one at B=1
+# through Thomas at tests/test_batched.py's tolerances (REFERENCE_TOL);
+# through cyclic reduction to REFERENCE_CR_RTOL on q and the statistics:
+# the cheetah's first Hessian has condition ~8.8e9 and cyclic reduction is
+# 3e-4..7e-4 off a dense solve there, so the routes' last bits can show
+# (measured: 5.3e-19 on q on the card from these guesses, 4.8e-7 on the
+# CPU from the YAML guess itself).  The constrained hopper at
+# REFERENCE_BATCH scenarios, REFERENCE_HOPPER_ITERS iterations, through
+# solve_batch(native=False) against native=True to REFERENCE_HOPPER_RTOL
+# (measured 5.2e-14 on tau: the per-problem launches are B=1, the
+# batch-native one B=4, another summation order in the kernel; a Thomas
+# rescue in the batch-native loop, which the per-problem loop has not,
+# would fail it).  The hull pad's pair: AoS against SoA at
+# REFERENCE_STATES poses within HULL_TOL beyond twice the AoS answer's own
+# spread under 1e-13 shifts of the pad.
+REFERENCE_STATES = 32
+REFERENCE_ITERS = 3
+REFERENCE_BATCH = 4
+REFERENCE_HOPPER_ITERS = 2
+PHYSICS_RTOL = 1e-11
+PARTIALS_RTOL = 1e-9
+REFERENCE_TOL = {"q": (1e-7, 1e-9), "tau": (1e-6, 1e-8),
+                 "stats": (1e-6, 1e-9), "Delta": (1e-7, 0.0),
+                 "dq": (1e-5, 1e-8)}
+REFERENCE_CR_RTOL = 1e-6
+REFERENCE_HOPPER_RTOL = 1e-9
+HULL_TOL = 1e-9
+STATS_ROWS = ("cost", "rho", "delta", "dq_norm", "grad_norm", "h_norm",
+              "merit", "solver_flag")
 KERNEL_BATCHES = (1, 256, 4096)
 ITER_BATCHES = (1, 256, 4096)
 REPS = 5  # timed calls per measurement
@@ -1731,6 +1777,7 @@ def launch_count(fn):
     log("profile", "host time, nested calls included: " + ", ".join(
         f"{name} {ns / 1e6:.0f} ms ({counts[name]})"
         for name, ns in host.most_common(6)))
+    launch_count.host_calls = counts
     return launches, busy_ns / 1e6 / wall_ms, wall_ms
 
 
@@ -2449,6 +2496,337 @@ def phase_bench(seed):
     return launches, results
 
 
+def reference_states(model, q_guess, n, seed):
+    """``n`` seeded states near the guess's knots (q, v, a) as CPU float64
+    numpy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = q_guess.cpu().numpy()
+    q = g[rng.integers(0, len(g), n)] + 0.02 * rng.standard_normal(
+        (n, model.nq))
+    return (q, 0.3 * rng.standard_normal((n, model.nv)),
+            0.2 * rng.standard_normal((n, model.nv)))
+
+
+def aos_physics(model, contact, prob, q, v, a, traj):
+    """The AoS pipeline on the states (vmapped) and the partials of one
+    trajectory: a dict of tensors, each shaped (states, ...)."""
+    from torch.func import vmap
+
+    from idto_tpu_torch.contact import force
+    from idto_tpu_torch.models import dynamics, kinematics
+    from idto_tpu_torch.optimizer import partials, trajectory_aos
+
+    m = model
+    R, p = vmap(lambda x: kinematics.forward_kinematics(m, x))(q)
+    qdot = vmap(lambda x, y: kinematics.v_to_qdot(m, x, y))(q, v)
+    tq, f = vmap(lambda x, y: force.contact_wrenches(m, x, y, contact))(q, v)
+    out = dict(
+        fk_R=R, fk_p=p, qdot=qdot,
+        v_back=vmap(lambda x, y: kinematics.qdot_to_v(m, x, y))(q, qdot),
+        nplus=vmap(lambda x: kinematics.nplus_matrix(m, x))(q),
+        tau=vmap(lambda x, y, z: dynamics.inverse_dynamics(m, x, y, z))(
+            q, v, a),
+        M=vmap(lambda x: dynamics.mass_matrix(m, x))(q),
+        qdd=vmap(lambda x, y, z, t, g: dynamics.forward_dynamics(
+            m, x, y, z, (t, g)))(q, v, a, tq, f),
+        torques=tq, forces=f,
+        step_tau=vmap(lambda x, y, z: trajectory_aos.step_tau(
+            m, contact, x, y, z))(q, v, a),
+    )
+    parts = partials.id_partials(m, prob, contact, traj)
+    out.update(dqm=parts[0], dqt=parts[1], dqp=parts[2])
+    return out
+
+
+def soa_physics(model, contact, prob, q, v, a, traj):
+    """The SoA layer on the same inputs, in the AoS layout."""
+    from idto_tpu_torch.soa import contact as soa_contact
+    from idto_tpu_torch.soa import dynamics, kinematics, partials
+
+    m = model
+    qs, vs, as_ = q.T, v.T, a.T
+    R, p = kinematics.forward_kinematics(m, qs)
+    qdot = kinematics.v_to_qdot(m, qs, vs)
+    tq, f = soa_contact.contact_wrenches(m, qs, vs, contact)
+    parts = partials.id_partials_batched(m, prob, contact, traj[None])
+    return dict(
+        fk_R=R.permute(3, 2, 0, 1), fk_p=p.permute(2, 1, 0), qdot=qdot.T,
+        v_back=kinematics.qdot_to_v(m, qs, qdot).T,
+        nplus=kinematics.nplus_matrix(m, qs).permute(2, 0, 1),
+        tau=dynamics.inverse_dynamics(m, qs, vs, as_).T,
+        M=dynamics.mass_matrix(m, qs).permute(2, 0, 1),
+        qdd=dynamics.forward_dynamics(m, qs, vs, as_, (tq, f)).T,
+        torques=tq.permute(2, 1, 0), forces=f.permute(2, 1, 0),
+        step_tau=soa_contact.step_tau(m, contact, qs, vs, as_).T,
+        dqm=parts[0][0], dqt=parts[1][0], dqp=parts[2][0],
+    )
+
+
+def physics_errors(x, ref):
+    """{key: relative error}; the partials' keys start with "dq"."""
+    return {k: rel_err(x[k].cpu(), ref[k].cpu()) for k in ref}
+
+
+def check_physics(tag, errs):
+    bad = {k: e for k, e in errs.items()
+           if e > (PARTIALS_RTOL if k.startswith("dq") else PHYSICS_RTOL)}
+    log("reference", f"(a) {tag}: worst " + ", ".join(
+        f"{k} {e:.2e}" for k, e in sorted(errs.items(),
+                                          key=lambda kv: -kv[1])[:4])
+        + f" (tol {PHYSICS_RTOL:g}, partials {PARTIALS_RTOL:g})")
+    if bad:
+        raise AssertionError(f"reference: {tag} disagrees: {bad}")
+
+
+def compare_runs(tag, a, b, tol):
+    """Two unbatched (Solution, Stats, WarmStart) of one problem: equal
+    iteration counts and flags, then each field within ``tol`` (rtol,
+    atol) by kind, or one relative bound for every field."""
+    import torch
+
+    (sa, ta, wa), (sb, tb, wb) = a, b
+    if int(ta.num_iters) != int(tb.num_iters) or int(ta.solver_flag) != int(
+            tb.solver_flag):
+        raise AssertionError(f"reference: {tag}: iterations or flags differ")
+    pairs = {"q": (sa.q, sb.q), "tau": (sa.tau, sb.tau),
+             "stats": (torch.stack([ta.cost, ta.rho, ta.delta]),
+                       torch.stack([tb.cost, tb.rho, tb.delta])),
+             "Delta": (wa.Delta, wb.Delta), "dq": (wa.dq, wb.dq)}
+    errs, ok = {}, True
+    for kind, (x, y) in pairs.items():
+        x, y = x.double().cpu(), y.double().cpu()
+        errs[kind] = rel_err(x, y)
+        if isinstance(tol, dict):
+            rtol, atol = tol[kind]
+            ok &= bool(((x - y).abs() <= atol + rtol * y.abs()).all())
+        elif kind in ("q", "stats"):
+            ok &= errs[kind] <= tol
+    log("reference", f"{tag}: " + ", ".join(
+        f"{k} {e:.2e}" for k, e in errs.items()) + f" (tol {tol})")
+    if not ok:
+        raise AssertionError(f"reference: {tag} disagrees")
+    return errs
+
+
+def phase_reference(seed):
+    """The per-problem (AoS) pipeline on the card; returns the kernel's
+    launches by path and the informational numbers."""
+    import numpy as np
+    import torch
+    from torch.func import vmap
+
+    from idto_tpu_torch.geometry import distance
+    from idto_tpu_torch.models.model import GeomType
+    from idto_tpu_torch.ops import cr_kernel
+    from idto_tpu_torch.optimizer import solver
+    from idto_tpu_torch.optimizer.problem import LinearSolverType
+    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+    from idto_tpu_torch.soa import contact as soa_contact
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    # The kernel at this phase's launch shapes: the cheetah's and the
+    # hopper's Newton steps and the hopper's Schur solve, at B=1.
+    for n, k, R in ((CHEETAH_N, CHEETAH_K, 1),) + CLOSED_LOOP_SHAPES:
+        check_kernel(gen, n, k, 1, R, torch.float64)
+    launches, numbers = {}, {}
+
+    # (a) physics: AoS against SoA on the card, and card against CPU.
+    inputs = {}
+    for device in ("cuda", "cpu"):
+        model, prob, params, qg = cheetah_inputs(1, seed, device)
+        q, v, a = (torch.as_tensor(x, device=device) for x in
+                   reference_states(model, qg[0], REFERENCE_STATES, seed))
+        inputs[device] = (model, params.contact, prob, q, v, a, qg[0])
+    t0 = time.perf_counter()
+    aos = aos_physics(*inputs["cuda"])
+    torch.cuda.synchronize()
+    aos_s = time.perf_counter() - t0
+    if float(aos["forces"].abs().max()) < 1.0:
+        raise AssertionError("reference: no contact force at the states")
+    check_physics(f"AoS vs SoA on the card, {REFERENCE_STATES} states and "
+                  f"a T={inputs['cuda'][2].num_steps} trajectory "
+                  f"({aos_s:.2f} s)",
+                  physics_errors(aos, soa_physics(*inputs["cuda"])))
+    check_physics("AoS card vs CPU",
+                  physics_errors(aos, aos_physics(*inputs["cpu"])))
+
+    # (b) the per-problem solve against the batch-native one at B=1.
+    model, prob, params, qg = cheetah_inputs(1, seed, "cuda",
+                                             iters=REFERENCE_ITERS)
+    q0 = qg[0]
+    solver.solve_trust_region(model, prob, params.replace(max_iterations=1),
+                              q0)  # warm-up: the lazy imports of torch.func
+    for name, ls in (("thomas", LinearSolverType.PENTA_LU),
+                     ("cr", LinearSolverType.CYCLIC_REDUCTION)):
+        p = params.replace(linear_solver=ls)
+        torch.cuda.synchronize()
+        cr_kernel.launches = 0
+        t0 = time.perf_counter()
+        ref = solver.solve_trust_region(model, prob, p, q0)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        n_ref = cr_kernel.launches
+        t0 = time.perf_counter()
+        nat = solver.solve(model, prob, p, q0)
+        torch.cuda.synchronize()
+        nat_s = time.perf_counter() - t0
+        iters = int(ref[1].num_iters)
+        if name == "cr":
+            launches["reference_cheetah"] = n_ref
+            if n_ref < iters:
+                raise AssertionError(f"reference: {n_ref} kernel launches "
+                                     f"in {iters} iterations")
+        elif n_ref:
+            raise AssertionError("reference: Thomas launched the kernel")
+        numbers[f"iteration_ms_{name}"] = 1e3 * ref_s / iters
+        numbers[f"native_iteration_ms_{name}"] = 1e3 * nat_s / iters
+        log("reference", f"(b) mini_cheetah T={prob.num_steps} float64 "
+                         f"{name}: per-problem {1e3 * ref_s / iters:.1f} ms "
+                         f"an iteration, batch-native B=1 "
+                         f"{1e3 * nat_s / iters:.1f} ms ({iters} iterations;"
+                         f" kernel launches {n_ref})")
+        for sol, stats, _ in (ref, nat):
+            check_solution(sol.replace(q=sol.q[None], v=sol.v[None],
+                                       tau=sol.tau[None]),
+                           stats.replace(**{f: getattr(stats, f)[None]
+                                            for f in STATS_ROWS}),
+                           f"reference {name}")
+        numbers[f"vs_native_{name}"] = compare_runs(
+            f"(b) per-problem vs batch-native, {name}", ref, nat,
+            REFERENCE_TOL if name == "thomas" else REFERENCE_CR_RTOL)
+    # Launches and synchronizations of an iteration, profiled: a
+    # 1-iteration solve (its set-up included) less the rollout that closes
+    # it (v and tau at the solution).
+    from idto_tpu_torch.optimizer import trajectory_aos
+    from idto_tpu_torch.soa import rollout
+
+    one = params.replace(linear_solver=LinearSolverType.PENTA_LU,
+                         max_iterations=1)
+    for tag, fn, closing in (
+            ("per_problem", solver.solve_trust_region,
+             lambda: trajectory_aos.generalized_forces(
+                 model, prob, one.contact, q0)),
+            ("native", solver.solve,
+             lambda: rollout.generalized_forces(model, prob, one.contact,
+                                                q0[None]))):
+        counts = []
+        for f in (lambda: fn(model, prob, one, q0), closing):
+            n_launch, busy, _ = launch_count(f)
+            host = launch_count.host_calls
+            counts.append((n_launch, sum(host[c] for c in host
+                                         if "Synchronize" in c), busy))
+        numbers[f"{tag}_launches_1_iteration"] = counts[0][0] - counts[1][0]
+        numbers[f"{tag}_syncs_1_iteration"] = counts[0][1] - counts[1][1]
+        numbers[f"{tag}_device_busy"] = counts[0][2]
+        log("reference", f"(b) {tag}: {counts[0][0] - counts[1][0]} CUDA "
+                         f"launches and {counts[0][1] - counts[1][1]} "
+                         f"synchronizations in a 1-iteration solve with its "
+                         f"set-up (Thomas; the closing rollout's "
+                         f"{counts[1][0]} launches and {counts[1][1]} "
+                         f"synchronizations taken off); device busy "
+                         f"{100 * counts[0][2]:.1f}% of the solve")
+
+    # (c) the constrained hopper: solve_batch(native=False) against True.
+    model, prob, params, qg = hopper_inputs(REFERENCE_BATCH, seed, "cuda")
+    params = params.replace(max_iterations=REFERENCE_HOPPER_ITERS)
+    probs = broadcast_problem(prob, REFERENCE_BATCH)
+    torch.cuda.synchronize()
+    cr_kernel.launches = 0
+    t0 = time.perf_counter()
+    per = solve_batch(model, probs, params, qg, native=False)
+    torch.cuda.synchronize()
+    per_s = time.perf_counter() - t0
+    n_per = cr_kernel.launches
+    launches["reference_hopper"] = n_per
+    nat = solve_batch(model, probs, params, qg, native=True)
+    want = 2 * int(per[1].num_iters.sum())
+    if n_per != want:
+        raise AssertionError(f"reference: hopper per-problem launches "
+                             f"{n_per}, expected {want}")
+    check_solution(per[0], per[1], "reference hopper", monotone=False)
+    errs = {k: rel_err(x.cpu(), y.cpu()) for k, x, y in (
+        ("q", per[0].q, nat[0].q), ("tau", per[0].tau, nat[0].tau),
+        ("cost", per[1].cost, nat[1].cost),
+        ("h_norm", per[1].h_norm, nat[1].h_norm))}
+    numbers["hopper_vs_native"] = errs
+    numbers["hopper_iteration_ms"] = 1e3 * per_s / int(
+        per[1].num_iters.sum())
+    log("reference", f"(c) hopper B={REFERENCE_BATCH} CR, per-problem: "
+                     f"{per_s:.2f} s, {n_per} launches (R=121 and R=1 an "
+                     f"iteration); vs native=True " + ", ".join(
+                         f"{k} {e:.2e}" for k, e in errs.items())
+                     + f" (tol {REFERENCE_HOPPER_RTOL:g})")
+    if not (torch.equal(per[1].num_iters, nat[1].num_iters)
+            and max(errs.values()) <= REFERENCE_HOPPER_RTOL):
+        raise AssertionError("reference: hopper per-problem disagrees")
+
+    # (d) the hull pad's pair: AoS signed_distance against the SoA kernel.
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        pad = pad_model("cuda", "hull_box_ground", d)
+    g = pad.geoms
+    ia, ib = g.pairs[0]
+    hull, box_t = GeomType.CONVEX, GeomType.BOX
+    if (g.types[ia], g.types[ib]) != (hull, box_t):
+        raise AssertionError("reference: the pad's pair is not hull-box")
+    rng = np.random.default_rng(seed + 6)
+    n = REFERENCE_STATES
+    quat = np.array([1.0, 0, 0, 0]) + 0.1 * rng.standard_normal((n, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    pos = np.c_[rng.uniform(-0.1, 0.1, (n, 2)),
+                PAD_HALF[2] + rng.uniform(-0.01, 0.01, n)]
+
+    def poses(shift):
+        from idto_tpu_torch.models.rotations import quat_to_rot
+
+        qt = torch.as_tensor(quat.T, device="cuda")
+        R_a = torch.movedim(quat_to_rot(qt), (0, 1), (-2, -1))
+        p_a = torch.as_tensor(pos + shift, device="cuda")
+        R_b = g.R[ib].expand(n, 3, 3)
+        p_b = g.p[ib].expand(n, 3)
+        return R_a, p_a, R_b, p_b
+
+    verts, box = g.verts[ia], g.params[ib]
+
+    # The poses and three copies moved by 1e-13 along each axis, in one
+    # evaluation (its time is set by the loops' launches, not by n).
+    shifts = np.concatenate([np.zeros((1, 3)), 1e-13 * np.eye(3)])
+    R_a, p_a, R_b, p_b = (torch.cat(x) for x in zip(
+        *(poses(sh) for sh in shifts)))
+    t0 = time.perf_counter()
+    all4 = vmap(lambda Ra, pa, Rb, pb: distance.signed_distance(
+        hull, verts, Ra, pa, box_t, box, Rb, pb))(R_a, p_a, R_b, p_b)
+    torch.cuda.synchronize()
+    aos_ms = 1e3 * (time.perf_counter() - t0)
+    got = [x[:n] for x in all4]
+    spread = [torch.stack([(x[k * n:(k + 1) * n] - x[:n]).abs()
+                           for k in (1, 2, 3)]).amax(dim=0) for x in all4]
+    R_a, p_a, R_b, p_b = poses(0.0)
+    # SoA: one pair (P = 1), the poses on the instance axis.
+    soa = soa_contact._pair_distance(
+        hull, verts.T[:, :, None, None], R_a.permute(1, 2, 0)[:, :, None],
+        p_a.T[:, None], box_t, box[:, None, None],
+        R_b.permute(1, 2, 0)[:, :, None], p_b.T[:, None])
+    soa = [soa[0][0]] + [x[:, 0].T for x in soa[1:]]
+    worst = 0.0
+    for x, y, sp in zip(got, soa, spread):
+        err = (x - y).abs().reshape(n, -1).amax(dim=1)
+        excess = err - 2.0 * sp.reshape(n, -1).amax(dim=1)
+        worst = max(worst, float(excess.max()))
+    numbers["hull_pair_aos_ms"] = aos_ms
+    log("reference", f"(d) hull pad vs ground box, {n} poses (phi "
+                     f"{float(got[0].min()):.4f}..{float(got[0].max()):.4f})"
+                     f": AoS {aos_ms:.0f} ms for them and their three "
+                     f"shifted copies; AoS vs SoA beyond twice the AoS "
+                     f"spread {worst:.2e} (tol {HULL_TOL:g})")
+    if worst > HULL_TOL:
+        raise AssertionError("reference: the hull pair disagrees")
+    return launches, numbers
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2457,7 +2835,7 @@ def main(argv=None):
                     help="after the device and build phases run this one "
                          "phase (kernel, slice, constraints, mpc, fleet, "
                          "closed_loop, options, geometry, parallel, bench, "
-                         "times) "
+                         "reference, times) "
                          "and stop "
                          "without the result lines")
     args = ap.parse_args(argv)
@@ -2478,6 +2856,7 @@ def main(argv=None):
             "geometry": lambda: phase_geometry(args.seed),
             "parallel": lambda: phase_parallel(args.seed),
             "bench": lambda: phase_bench(args.seed),
+            "reference": lambda: phase_reference(args.seed),
             "times": lambda: phase_times(args.seed, REPS),
         }[args.only]
         phase()
@@ -2515,6 +2894,9 @@ def main(argv=None):
     bench_launches, bench_results = timed_phase(
         "bench", lambda: phase_bench(args.seed))
     by_path.update(bench_launches)
+    reference_launches, reference_numbers = timed_phase(
+        "reference", lambda: phase_reference(args.seed))
+    by_path.update(reference_launches)
     times = timed_phase("times", lambda: phase_times(args.seed, REPS))
 
     print(smi, flush=True)
@@ -2550,6 +2932,10 @@ def main(argv=None):
         # The bench phase: bench_torch's result lines at batches 1 and 8
         # (float64), by linear solver.
         "bench": bench_results,
+        # The reference phase (float64): the per-problem (AoS) cheetah
+        # iteration against the batch-native one at B=1, their launches and
+        # synchronizations an iteration, the errors between the two routes.
+        "reference": reference_numbers,
         # Host seconds of each phase of this run.
         "phase_seconds": seconds,
     }]}), flush=True)

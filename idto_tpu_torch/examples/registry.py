@@ -4,11 +4,10 @@ Every pair type they use has an SoA kernel (``soa.contact.supports_soa``):
 jaco and allegro_hand need only sphere and box pairs, punyo the capsule
 pairs as well.  No example uses a mesh, an SDF file or a convex hull.  Model
 files and YAML configs are read from the JAX package's data directories by
-path."""
+path (``utils/find_resource.py``)."""
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -17,15 +16,10 @@ import torch
 from idto_tpu_torch.models.model import GeomType, JointType, ModelBuilder
 from idto_tpu_torch.models.rotations import rpy_to_rot_np
 from idto_tpu_torch.models.urdf import parse_urdf_file
-
-_DATA_ROOT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "idto_tpu",
-)
-
+from idto_tpu_torch.utils.find_resource import find_resource
 
 def _asset(name: str) -> str:
-    return os.path.join(_DATA_ROOT, "assets", name)
+    return find_resource(f"idto_tpu/assets/{name}")
 
 
 def _add_ground_box(
@@ -259,8 +253,8 @@ def load_example(name: str, test_mode: bool = False, dtype=torch.float64,
     )
 
     ex = get_example(name)
-    cfg = ExampleConfig.load(os.path.join(_DATA_ROOT, "examples", "configs",
-                                          ex.config))
+    cfg = ExampleConfig.load(
+        find_resource(f"idto_tpu/examples/configs/{ex.config}"))
     if test_mode:
         cfg = cfg.apply_test_mode()
     model = ex.build().finalize(dtype=dtype, device=device)

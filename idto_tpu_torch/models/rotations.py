@@ -84,6 +84,14 @@ def skew(axes):
                         const(_LEVI, axes.device, axes.dtype), axes)
 
 
+def unskew(m):
+    """Inverse of skew for (3, 3, ...) matrices: the vector of m's skew
+    part (the average of each off-diagonal pair)."""
+    return 0.5 * torch.stack(
+        [m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1]], dim=0
+    )
+
+
 def axis_angle_to_rot(axes, angles):
     """Rodrigues: unit axes (3, g) and angles (g, N) -> (3, 3, g, N)."""
     K = skew(axes)[..., None]  # (3, 3, g, 1)

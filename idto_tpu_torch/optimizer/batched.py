@@ -53,6 +53,18 @@ from idto_tpu_torch.soa.kinematics import normalize_quaternions
 from idto_tpu_torch.utils.consts import index
 
 
+def can_solve_batched_native(model: Model, params: SolverParameters) -> bool:
+    """The batch-native loop serves this configuration: every contact pair
+    of the model has an SoA kernel (all but a halfspace against a
+    halfspace).  ``params`` does not enter.  The JAX package's predicate
+    also sends linesearch, finite-difference partials, the dense and
+    exact-Hessian solves, verbose and the iteration timer to
+    ``vmap(solve_trust_region)``; the port's batched loop serves each of
+    those itself."""
+    del params
+    return soa_contact.supports_soa(model)
+
+
 def check_supported(model: Model):
     """Raise for a model with a contact pair that has no SoA kernel (only a
     halfspace against a halfspace, where the JAX package raises too)."""

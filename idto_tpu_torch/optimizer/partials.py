@@ -1,12 +1,20 @@
-"""Inverse-dynamics partials: the container, the finite-difference partials
-and the dispatch on ``gradients_method`` (counterpart of
-``idto_tpu/optimizer/partials.py``; the exact partials are
-``soa/partials.py``).
+"""Inverse-dynamics partials: the container, the exact partials of one
+problem, the finite-difference partials and the dispatch on
+``gradients_method`` (counterpart of ``idto_tpu/optimizer/partials.py``;
+the batch-native exact partials are ``soa/partials.py``).
 
-The finite differences are batch-native: every perturbed coordinate of
-every step's (q_{t-1}, q_t, q_{t+1}) triplet is one more instance on the
-SoA instance axis, so one ``step_tau`` call evaluates a stencil point for
-all coordinates of all steps of all scenarios.
+tau_t depends on its configuration triplet through
+    v_t     = N^+(q_t)   (q_t   - q_{t-1}) / dt      (v_0 = v_init, const)
+    v_{t+1} = N^+(q_{t+1})(q_{t+1} - q_t) / dt
+    a_t     = (v_{t+1} - v_t) / dt
+    tau_t   = ID(q_{t+1}, v_{t+1}, a_t, contact(q_{t+1}, v_{t+1})),
+so the partials are three (T, nv, nq) block diagonals.
+
+``id_partials`` is the per-problem (AoS) route: ``torch.func.jacfwd`` of
+the AoS ``step_tau``, vmapped over the horizon.  The finite differences
+are batch-native: every perturbed coordinate of every step's triplet is one
+more instance on the SoA instance axis, so one ``step_tau`` call evaluates
+a stencil point for all coordinates of all steps of all scenarios.
 """
 from __future__ import annotations
 
@@ -14,7 +22,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.func import jacfwd, vmap
 
+from idto_tpu_torch.models.kinematics import nplus_matrix, qdot_to_v
+from idto_tpu_torch.optimizer.trajectory_aos import step_tau
 from idto_tpu_torch.soa import contact as soa_contact
 from idto_tpu_torch.soa import kinematics as soa_kin
 
@@ -26,6 +37,88 @@ class IdPartials(NamedTuple):
     dtau_dqm: torch.Tensor
     dtau_dqt: torch.Tensor
     dtau_dqp: torch.Tensor
+
+
+def _stack_steps(first, mid, num_steps):
+    """(dqm, dqt, dqp) over the horizon from step 0's (dqt, dqp) and the
+    vmapped steps 1..T-1; dqm at t = 0 is zero (q_{-1} does not exist)."""
+    d0t, d0p = first
+    if num_steps == 1:
+        return IdPartials(torch.zeros_like(d0t)[None], d0t[None], d0p[None])
+    dm, dt_, dp = mid
+    return IdPartials(torch.cat([torch.zeros_like(dm[:1]), dm]),
+                      torch.cat([d0t[None], dt_]), torch.cat([d0p[None], dp]))
+
+
+def id_partials(model, prob, contact, q) -> IdPartials:
+    """Exact partials of one problem, q (T+1, nq), by the explicit chain
+    rule: (T, nv, nq) each.
+
+    Forward mode through the kinematics covers only the nq tangents of
+    q_{t+1} at fixed (v, a); the v- and a-dependence is differentiated
+    with FK-free tangents (ID is linear in a, body velocities are linear
+    in v), and the q_t / q_{t-1} blocks assemble from M = dID/da and
+    Cv = dID/dv.  With the velocity map w(q) = N^+(q) applied to a
+    finite difference,
+      dtau/dq_{t+1} = Gq + (Cv + M/dt) Vp_p
+      dtau/dq_t     = (Cv + M/dt) Vp_t - (M/dt) Vt_t
+      dtau/dq_{t-1} =              (M/dt) N^+(q_t)/dt
+    where Gq = dID/dq_{t+1} at fixed (v, a), Vp_p = d v_{t+1}/d q_{t+1},
+    Vp_t = -N^+(q_{t+1})/dt and Vt_t = d v_t/d q_t (the N^+ product-rule
+    terms are nonzero only for quaternion blocks)."""
+    dt = prob.dt
+    v_init = prob.v_init.to(q.dtype)
+
+    def step_blocks(qt, qp, v_t):
+        """(M, Cv, Gq, Vp_p, N^+(q_{t+1})) at one step; v_t is constant
+        with respect to this step's derivatives."""
+        v_p = qdot_to_v(model, qp, (qp - qt) / dt)
+        a_t = (v_p - v_t) / dt
+        Gq = jacfwd(lambda qq: step_tau(model, contact, qq, v_p, a_t))(qp)
+        Cv, M = jacfwd(lambda vv, aa: step_tau(model, contact, qp, vv, aa),
+                       argnums=(0, 1))(v_p, a_t)
+        Vp_p = jacfwd(lambda qq: qdot_to_v(model, qq, (qq - qt) / dt))(qp)
+        return M, Cv, Gq, Vp_p, nplus_matrix(model, qp)
+
+    def parts_mid(qm, qt, qp):
+        v_t = qdot_to_v(model, qt, (qt - qm) / dt)
+        M, Cv, Gq, Vp_p, Npp = step_blocks(qt, qp, v_t)
+        Vt_t = jacfwd(lambda qq: qdot_to_v(model, qq, (qq - qm) / dt))(qt)
+        CvM = Cv + M / dt
+        return ((M / dt) @ (nplus_matrix(model, qt) / dt),
+                CvM @ (-Npp / dt) - (M / dt) @ Vt_t,
+                Gq + CvM @ Vp_p)
+
+    def parts_first(qt, qp):
+        M, Cv, Gq, Vp_p, Npp = step_blocks(qt, qp, v_init)
+        CvM = Cv + M / dt
+        return CvM @ (-Npp / dt), Gq + CvM @ Vp_p  # v_0 = v_init: constant
+
+    mid = (vmap(parts_mid)(q[:-2], q[1:-1], q[2:])
+           if prob.num_steps > 1 else None)
+    return _stack_steps(parts_first(q[0], q[1]), mid, prob.num_steps)
+
+
+def id_partials_full_jacfwd(model, prob, contact, q) -> IdPartials:
+    """Exact partials of one problem by one ``jacfwd`` over the whole
+    (q_{t-1}, q_t, q_{t+1}) triplet (3 nq tangents through the kinematics):
+    the oracle of ``id_partials``."""
+    dt = prob.dt
+    v_init = prob.v_init.to(q.dtype)
+
+    def tau_mid(qm, qt, qp):
+        v_t = qdot_to_v(model, qt, (qt - qm) / dt)
+        v_p = qdot_to_v(model, qp, (qp - qt) / dt)
+        return step_tau(model, contact, qp, v_p, (v_p - v_t) / dt)
+
+    def tau_first(qt, qp):
+        v_p = qdot_to_v(model, qp, (qp - qt) / dt)
+        return step_tau(model, contact, qp, v_p, (v_p - v_init) / dt)
+
+    mid = (vmap(jacfwd(tau_mid, argnums=(0, 1, 2)))(q[:-2], q[1:-1], q[2:])
+           if prob.num_steps > 1 else None)
+    return _stack_steps(jacfwd(tau_first, argnums=(0, 1))(q[0], q[1]), mid,
+                        prob.num_steps)
 
 
 # Step-size exponent and stencil (offsets in steps, weights) of each order:
@@ -110,9 +203,11 @@ def id_partials_fd(model, prob, contact, qs, order: int = 1,
 
 
 def id_partials_for(model, prob, params, qs, halo=False) -> IdPartials:
-    """The partials ``params.gradients_method`` asks for, for a batch qs
-    (B, T+1, nq), or with ``halo`` for the steps of a slice of the horizon
-    (``soa/partials.py::step_triplets``)."""
+    """The partials ``params.gradients_method`` asks for.  For a batch qs
+    (B, T+1, nq) the batch-native ones, or with ``halo`` those of the steps
+    of a slice of the horizon (``soa/partials.py::step_triplets``); for one
+    problem's q (T+1, nq) the per-problem route: ``id_partials``, or the
+    finite differences of that one problem."""
     from idto_tpu_torch.optimizer.problem import GradientsMethod
     from idto_tpu_torch.soa import partials as soa_partials
 
@@ -121,6 +216,11 @@ def id_partials_for(model, prob, params, qs, halo=False) -> IdPartials:
         GradientsMethod.CENTRAL_DIFFERENCES: 2,
         GradientsMethod.CENTRAL_DIFFERENCES4: 4,
     }.get(params.gradients_method)
+    if qs.ndim == 2:
+        if order is None:
+            return id_partials(model, prob, params.contact, qs)
+        return IdPartials(*(x[0] for x in id_partials_fd(
+            model, prob, params.contact, qs[None], order=order)))
     if order is None:
         return soa_partials.id_partials_batched(model, prob, params.contact,
                                                 qs, halo=halo)
@@ -129,7 +229,10 @@ def id_partials_for(model, prob, params, qs, halo=False) -> IdPartials:
 
 
 def nplus_stack(model, qs):
-    """N^+ at every knot: qs (B, T+1, nq) -> (B, T+1, nv, nq)."""
+    """N^+ at every knot: qs (B, T+1, nq) -> (B, T+1, nv, nq), or one
+    problem's q (T+1, nq) -> (T+1, nv, nq) on the per-problem route."""
     from idto_tpu_torch.soa import partials as soa_partials
 
+    if qs.ndim == 2:
+        return vmap(lambda qq: nplus_matrix(model, qq))(qs)
     return soa_partials.nplus_stack_batched(model, qs)

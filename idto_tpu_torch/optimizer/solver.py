@@ -1,16 +1,22 @@
 """Gauss-Newton trust-region step: results, statistics, the linear-algebra
-tail of one iteration, the dogleg, the verbose table and the single-problem
-``solve`` (counterpart of ``idto_tpu/optimizer/solver.py``).
+tail of one iteration, the dogleg, the verbose table, the single-problem
+``solve`` and the per-problem reference loop ``solve_trust_region``
+(counterpart of ``idto_tpu/optimizer/solver.py``).
 
-The port runs batch-native only: every function here takes a leading
-scenario axis B and works per scenario.  The loop itself is
-``optimizer/batched.py``; ``solve`` and ``solve_from_warm_start`` are B=1
-calls of it.  Equality constraints (zero generalized force on the
-unactuated DoFs) are solved as in the JAX package: the multipliers come
-from the Schur complement J~ H~^-1 J~^T, whose n_h + 1 solves with H~ are
-one call of the linear solver.  ``DENSE_LDLT`` and ``exact_hessian`` route
-the linear algebra through a dense partial-pivot LU (a library call, as in
-the JAX package, which computes it outside any Pallas kernel).
+Every function of the linear-algebra tail takes a leading scenario axis B
+and works per scenario.  The batch-native loop is ``optimizer/batched.py``;
+``solve`` and ``solve_from_warm_start`` are B=1 calls of it.
+``solve_trust_region`` is the per-problem loop: its physics is the AoS
+pipeline (``optimizer/trajectory_aos.py``, ``optimizer/partials.py::
+id_partials``), its linear algebra this module's tail with a leading axis
+of one, and it is the reference the batch-native loop is held against
+(``solve_batch(native=False)``).  Equality constraints (zero generalized
+force on the unactuated DoFs) are solved as in the JAX package: the
+multipliers come from the Schur complement J~ H~^-1 J~^T, whose n_h + 1
+solves with H~ are one call of the linear solver.  ``DENSE_LDLT`` and
+``exact_hessian`` route the linear algebra through a dense partial-pivot
+LU (a library call, as in the JAX package, which computes it outside any
+Pallas kernel).
 """
 from __future__ import annotations
 
@@ -21,10 +27,17 @@ from typing import Any, NamedTuple
 import torch
 from torch.func import grad, jvp, vmap
 
+from idto_tpu_torch.models.kinematics import normalize_quaternions
 from idto_tpu_torch.ops import cr_kernel, cyclic_reduction, penta
+from idto_tpu_torch.optimizer import itimer, trajectory_aos
 from idto_tpu_torch.optimizer.hessian import (
     gauss_newton_hessian,
     gradient_from_partials,
+)
+from idto_tpu_torch.optimizer.partials import (
+    IdPartials,
+    id_partials_for,
+    nplus_stack,
 )
 from idto_tpu_torch.optimizer.problem import (
     LinearSolverType,
@@ -263,19 +276,21 @@ def _lin_matvec(H, x):
     return penta.matvec(H, x)
 
 
-def _exact_hessian_dense(model, prob, params, q):
+def _exact_hessian_dense(model, prob, params, q, cost=None):
     """Exact Hessian of the cost, dense (B, n, n), with the q_0 block
     pinned to the identity: forward mode over the reverse-mode gradient of
-    the SoA cost, one tangent per decision variable, all scenarios at
-    once (their costs are independent, so a tangent that moves every
-    scenario's variable j gives each scenario's column j)."""
+    the cost, one tangent per decision variable, all scenarios at once
+    (their costs are independent, so a tangent that moves every scenario's
+    variable j gives each scenario's column j).  ``cost`` maps (B, T+1,
+    nq) to (B,): the SoA rollout's unless given."""
     B, Tp1, nq = q.shape
     n = Tp1 * nq
-    contact = params.contact
+    if cost is None:
+        def cost(x):
+            return rollout.cost(model, prob, params.contact, x)
 
     def g(qf):
-        return grad(lambda x: torch.sum(rollout.cost(
-            model, prob, contact, x.reshape(B, Tp1, nq))))(qf)
+        return grad(lambda x: torch.sum(cost(x.reshape(B, Tp1, nq))))(qf)
 
     qf = q.reshape(B, n)
     eye = torch.eye(n, dtype=q.dtype, device=q.device)
@@ -393,19 +408,20 @@ def _scaled(H, g, params, D_prev, diag):
 
 def _prepare_from_physics(
     model, prob, params: SolverParameters, q, D_prev, cost, v, tau, parts,
-    nplus, horizon=None,
+    nplus, horizon=None, cost_fn=None,
 ) -> _Prepared:
     """Gradient and Hessian assembly, scaling, factorization, the
     constraint Schur solve, the Newton solve with its per-scenario
     containment, and the Cauchy step, from already evaluated physics.
     ``horizon`` routes cyclic reduction through the distributed solve
-    (``_sparse_factorize``)."""
+    (``_sparse_factorize``); ``cost_fn`` is the cost the exact Hessian
+    differentiates (``_exact_hessian_dense``)."""
     B = q.shape[0]
     g = gradient_from_partials(model, prob, parts, nplus, q, v, tau)
     if _use_dense(params):
         # The exact Hessian (testing), or the Gauss-Newton one densified.
         if params.exact_hessian:
-            H = _exact_hessian_dense(model, prob, params, q)
+            H = _exact_hessian_dense(model, prob, params, q, cost_fn)
         else:
             H = penta.to_dense(gauss_newton_hessian(model, prob, parts, nplus))
         diag = torch.diagonal(H, dim1=-2, dim2=-1).reshape(q.shape)
@@ -520,3 +536,165 @@ def solve_from_warm_start(model, prob, params, warm: WarmStart):
                                device=warm.q.device).reshape(1),
     )
     return tuple(unbatch(x) for x in out)
+
+
+# -- the per-problem reference loop -------------------------------------------
+
+# Stats rows the loop writes an entry of each iteration.
+_ROWS = ("cost", "delta", "rho", "q_norm", "dq_norm", "dqH_norm",
+         "grad_norm", "dL_dq", "h_norm", "merit")
+
+
+def _prepare(model, prob, params, q, D_prev) -> _Prepared:
+    """Everything the step needs at one problem's iterate q (T+1, nq), from
+    the per-problem (AoS) physics; the tail runs with a leading axis of
+    one (D_prev and every field of the result lead with it)."""
+    contact = params.contact
+    v = trajectory_aos.velocities(model, prob, q)
+    tau = trajectory_aos.generalized_forces(model, prob, contact, q, v=v)
+    cost = trajectory_aos.cost(model, prob, contact, q, tau=tau, v=v)
+    parts = id_partials_for(model, prob, params, q)
+    return _prepare_from_physics(
+        model, prob, params, q[None], D_prev, cost[None], v[None], tau[None],
+        IdPartials(*(x[None] for x in parts)), nplus_stack(model, q)[None],
+        cost_fn=lambda x: trajectory_aos.cost(model, prob, contact,
+                                              x[0])[None],
+    )
+
+
+def _merit_at(model, prob, params, q_try, lam):
+    """(merit, cost) at one problem's trial point with frozen multipliers,
+    phi = L + h^T lam, each (1,)."""
+    contact = params.contact
+    v = trajectory_aos.velocities(model, prob, q_try)
+    tau = trajectory_aos.generalized_forces(model, prob, contact, q_try, v=v)
+    cost = trajectory_aos.cost(model, prob, contact, q_try, tau=tau,
+                               v=v)[None]
+    if lam.shape[-1] > 0:
+        h = tau[:, index(model.unactuated_vdofs, tau.device)].reshape(1, -1)
+        return cost + _bsum(h * lam), cost
+    return cost, cost
+
+
+def solve_trust_region(model, prob, params, q_guess, Delta0=None):
+    """The trust-region solve of one problem (prob unbatched, q_guess
+    (T+1, nq)) on the per-problem (AoS) physics, from the trust radius
+    ``Delta0`` (``params.Delta0`` when None).  Returns unbatched
+    (Solution, Stats, WarmStart).
+
+    ``params.method`` is not read: this is the trust region.  The loop
+    reads one flag from the device an iteration (whether it is done), and
+    the verbose table reads its row."""
+    dtype, device = q_guess.dtype, q_guess.device
+    K = params.max_iterations
+    Delta = torch.as_tensor(params.Delta0 if Delta0 is None else Delta0,
+                            dtype=dtype, device=device).reshape(1)
+    eta = 0.0  # acceptance threshold
+    eps_guard = 10 * torch.finfo(dtype).eps / prob.dt / prob.dt
+    q = q_guess[None]
+    D = torch.ones_like(q)
+    # NaN sentinel: the cost-reduction test cannot fire on iteration 0.
+    prev_cost = torch.full((1,), float("nan"), dtype=dtype, device=device)
+    reason = torch.zeros(1, dtype=torch.int32, device=device)
+    failed = torch.zeros(1, dtype=torch.bool, device=device)
+    dq_last = dqH_last = torch.zeros_like(q)
+    rows = {name: [] for name in _ROWS}
+    if params.record_iteration_times:
+        itimer.reset(device)
+    k = 0
+    while k < K:
+        prep = _prepare(model, prob, params, q[0], D)
+        dq_scaled, dq, boundary_active = _dogleg(prep, Delta)
+
+        # ---- trust ratio ----
+        q_try = q + dq
+        if params.normalize_quaternions:
+            q_try = normalize_quaternions(model, q_try)
+        merit_try, cost_try = _merit_at(model, prob, params, q_try[0],
+                                        prep.lam)
+        predicted = -_bsum(prep.g_merit * dq_scaled) - 0.5 * _bsum(
+            dq_scaled * _lin_matvec(prep.H, dq_scaled))
+        actual = prep.merit - merit_try
+        rho = torch.where((predicted < eps_guard) & (actual < eps_guard),
+                          torch.full_like(actual, 0.5), actual / predicted)
+        # A non-finite ratio rejects the step and shrinks the radius.
+        rho = torch.where(torch.isfinite(rho), rho, torch.full_like(rho, -1.0))
+        accept = (rho > eta) & prep.fact_ok
+
+        dq_norm = _bnorm(dq)
+        g_norm = _bnorm(prep.g_merit)
+        for name, val in zip(_ROWS, (
+                prep.cost, Delta, rho, _bnorm(q), dq_norm,
+                _bnorm(prep.p_newton), g_norm,
+                _bsum(prep.g_merit * dq_scaled) / prep.cost,
+                _bnorm(prep.h), prep.merit)):
+            rows[name].append(val)
+        if params.record_iteration_times:
+            itimer.mark()
+        if params.verbose:
+            _print_iter_row(k, prep.cost, prep.merit, Delta, rho, dq_norm,
+                            g_norm, _bnorm(prep.h))
+
+        # ---- convergence (accepted steps only) ----
+        reason = torch.zeros_like(reason)
+        if params.check_convergence:
+            tol = params.tolerances
+            cost_new = torch.where(accept, cost_try, prep.cost)
+            crit_cost = torch.abs(prev_cost - cost_new) < (
+                tol.abs_cost_reduction + tol.rel_cost_reduction * cost_new)
+            crit_grad = torch.abs(_bsum(prep.g_merit * dq_scaled)) < (
+                tol.abs_gradient_along_dq
+                + tol.rel_gradient_along_dq * prep.cost)
+            crit_state = dq_norm < (
+                tol.abs_state_change + tol.rel_state_change * _bnorm(q))
+            bits = sum(
+                crit.to(torch.int32) * int(flag) for crit, flag in (
+                    (crit_cost, ConvergenceReason.COST_REDUCTION),
+                    (crit_grad, ConvergenceReason.GRADIENT),
+                    (crit_state, ConvergenceReason.STATE_CHANGE)))
+            reason = torch.where(accept, bits, reason)
+        done = (reason > 0) | ~prep.fact_ok
+
+        # ---- trust region update ----
+        Delta_new = torch.where(
+            rho < 0.25, Delta * 0.25,
+            torch.where((rho > 0.75) & boundary_active,
+                        torch.clamp_max(2.0 * Delta, params.Delta_max),
+                        Delta))
+        Delta = torch.where(done, Delta, Delta_new)
+        prev_cost = torch.where(accept, cost_try, prep.cost)
+        q = torch.where(_bcast(accept, q), q_try, q)
+        # Degraded-but-contained Newton solves latch into the same
+        # FACTORIZATION_FAILED report as hard failures.
+        failed = failed | ~prep.fact_ok | ~prep.solve_ok
+        D, dq_last, dqH_last = prep.D, dq, prep.D * prep.p_newton
+        k += 1
+        if bool(done):  # host sync once per iteration
+            break
+
+    q = q[0]
+    v = trajectory_aos.velocities(model, prob, q)
+    tau = trajectory_aos.generalized_forces(model, prob, params.contact, q,
+                                            v=v)
+    nan = torch.full((K,), float("nan"), dtype=dtype, device=device)
+
+    def row(name):
+        return torch.cat([torch.cat(rows[name]), nan[k:]]) if k else nan
+
+    def i32(x):
+        return torch.as_tensor(int(x), dtype=torch.int32, device=device)
+
+    flag = torch.where(
+        failed[0], i32(SolverFlag.FACTORIZATION_FAILED),
+        torch.where((reason[0] > 0) | (k < K), i32(SolverFlag.SUCCESS),
+                    i32(SolverFlag.MAX_ITERATIONS)))
+    stats = Stats(
+        num_iters=i32(k), **{name: row(name) for name in _ROWS},
+        time=nan, alpha=nan,
+        ls_iters=torch.zeros(K, dtype=torch.int32, device=device),
+        solver_flag=flag, convergence_reason=reason[0],
+    )
+    if params.record_iteration_times:
+        stats = itimer.attach(stats)
+    return (Solution(q=q, v=v, tau=tau), stats,
+            WarmStart(q=q, Delta=Delta[0], dq=dq_last[0], dqH=dqH_last[0]))

@@ -4,7 +4,8 @@ exact gradient (counterpart of ``idto_tpu/optimizer/trajectory.py``).
 Thin wrappers over the SoA rollout (``soa/rollout.py``): q is (T+1, nq)
 for one trajectory, or (B, T+1, nq) for a batch, and the results carry the
 same leading axes.  The linesearch, the gradient check, the exact Hessian
-and the CSV dumps call these.
+and the CSV dumps call these.  The per-problem solve computes the same
+quantities on the AoS pipeline instead (``optimizer/trajectory_aos.py``).
 """
 from __future__ import annotations
 

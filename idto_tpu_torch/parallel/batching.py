@@ -1,8 +1,10 @@
 """Scenario batching and sharding across ranks (counterpart of
-``idto_tpu/parallel/batching.py``, native path only).
+``idto_tpu/parallel/batching.py``).
 
   * ``solve_batch``: the batch-native solve over a leading scenario axis;
     each scenario carries its own trust radius and accept/reject path.
+    ``native=False`` solves the scenarios one at a time on the per-problem
+    reference instead.
   * ``solve_batch_sharded``: the scenario axis split over one axis of a
     ``DeviceMesh`` (a process group, ``make_mesh``).  Every rank holds the
     whole batch, as JAX's logical global array does, solves its contiguous
@@ -23,15 +25,34 @@ from idto_tpu_torch.optimizer.problem import ProblemDefinition
 from idto_tpu_torch.parallel import multihost
 
 
-def solve_batch(model: Model, probs: ProblemDefinition, params, q_guesses):
+def solve_batch(model: Model, probs: ProblemDefinition, params, q_guesses,
+                native: Optional[bool] = None):
     """Batched solve: ``probs`` tensors lead with the scenario axis (see
-    broadcast_problem); q_guesses is (B, T+1, nq).  Returns batched
-    (Solution, Stats, WarmStart) from the batch-native trust-region solve,
-    or from the linesearch when ``params.method`` is LINESEARCH (the JAX
-    package's ``solve_batch`` runs the trust region for those too; its
-    single-problem ``solve`` dispatches as this does)."""
+    broadcast_problem) or are shared; q_guesses is (B, T+1, nq).  Returns
+    batched (Solution, Stats, WarmStart).
+
+    ``native=None`` takes the batch-native solve wherever
+    ``can_solve_batched_native`` says it serves the configuration (every
+    one but a model with a halfspace-halfspace pair).  That is the
+    trust region, or the linesearch when ``params.method`` is LINESEARCH
+    (the JAX package's batch-native route runs the trust region for those
+    too; its single-problem ``solve`` dispatches as this does).
+    ``native=False`` runs the per-problem reference,
+    ``solver.solve_trust_region``, one scenario after another, and stacks
+    the results: the trust region whatever ``params.method`` says, as in
+    the JAX package."""
+    from idto_tpu_torch.optimizer.batched import can_solve_batched_native
     from idto_tpu_torch.optimizer.problem import SolverMethod
 
+    if native is None:
+        native = can_solve_batched_native(model, params)
+    if not native:
+        from idto_tpu_torch.optimizer.solver import solve_trust_region
+
+        outs = [solve_trust_region(
+            model, map_scenarios(lambda x, b=b: x[b], probs), params,
+            q_guesses[b]) for b in range(q_guesses.shape[0])]
+        return tuple(_stack_rows([o[i] for o in outs]) for i in range(3))
     if params.method == SolverMethod.LINESEARCH:
         from idto_tpu_torch.optimizer.linesearch import solve_linesearch
 
@@ -85,6 +106,16 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "scenario",
                          "DeviceMesh spans every rank of the default group")
     return init_device_mesh(torch.device(device).type, (n,),
                             mesh_dim_names=(axis,))
+
+
+def _stack_rows(xs):
+    """Unbatched Solutions, Stats or WarmStarts stacked on a new scenario
+    axis."""
+    return xs[0].replace(**{
+        f.name: torch.stack([getattr(x, f.name) for x in xs])
+        for f in dataclasses.fields(xs[0])
+        if isinstance(getattr(xs[0], f.name), torch.Tensor)
+    })
 
 
 def _gather_rows(x, ax):

@@ -60,3 +60,18 @@ def from_aos_mat(M):
 def from_aos_vec(v):
     """(..., 3) -> (3, ...)."""
     return torch.movedim(v, -1, 0)
+
+
+def transpose(A):
+    """A^T for (3, 3, ...) matrices."""
+    return torch.swapaxes(A, 0, 1)
+
+
+def to_aos_mat(M):
+    """(3, 3, ...) -> (..., 3, 3)."""
+    return torch.movedim(M, (0, 1), (-2, -1))
+
+
+def to_aos_vec(v):
+    """(3, ...) -> (..., 3)."""
+    return torch.movedim(v, 0, -1)

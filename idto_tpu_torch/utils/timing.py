@@ -4,8 +4,8 @@
 Work on a CUDA tensor returns before the card has done it, so a host clock
 around a call measures the launch.  These helpers bracket calls with CUDA
 events on the current stream and wait for the last one; on the CPU they
-read ``time.perf_counter``.  The JAX package's ``measure_rtt``, which
-measured a remote-TPU round trip, has no counterpart.
+read ``time.perf_counter``.  ``measure_rtt`` is the round trip of a
+tiny op and a read of its result: what a host-clock timing adds.
 """
 from __future__ import annotations
 
@@ -40,6 +40,23 @@ def _seconds(fn, args, device):
     t0 = time.perf_counter()
     fn(*args)
     return time.perf_counter() - t0
+
+
+def measure_rtt(reps: int = 20, device=None) -> float:
+    """Median seconds of one tiny op on ``device`` (the current CUDA
+    device, or the CPU without one) and the read of its scalar result back
+    to the host, after one warm-up."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    a = torch.zeros((), dtype=torch.float32, device=device)
+    float(a + 1.0)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        float(a + 1.0)
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return ts[len(ts) // 2]
 
 
 def time_fn(fn: Callable, inputs: Sequence[tuple], reps: int = 10,

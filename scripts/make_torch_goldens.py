@@ -963,6 +963,78 @@ def f32_accept():
     _save("f32_accept", **out)
 
 
+# -- goldens of the per-problem (AoS) pipeline and its solve
+# (tests/test_torch_aos.py, tests/test_torch_reference_solve.py) -----------
+
+
+def aos(name):
+    """tests/test_torch_aos.py's ``case``: every AoS function of the JAX
+    package (kinematics, dynamics, contact wrenches with their pair info,
+    step_tau) at the seeded states, and the trajectory quantities and the
+    exact partials (``id_partials``) of the seeded T-step trajectory."""
+    from idto_tpu.contact.force import contact_wrenches
+    from idto_tpu.models import dynamics as jdyn
+    from idto_tpu.models import kinematics as jkin
+    from idto_tpu.optimizer import trajectory as jtraj
+    from idto_tpu.optimizer.partials import id_partials
+    from tests import test_torch_aos as ta
+
+    model, _, prob, params, q_guess = load_example(name)
+    x = ta.states(name, np.asarray(q_guess), model.nv, ta.CASES.index(name))
+    prob = ta.short(prob)
+    jc = params.contact
+
+    def per_state(q, v, a):
+        R, p = jkin.forward_kinematics(model, q)
+        _, _, w, pd = jkin.body_velocities(model, q, v)
+        qdot = jkin.v_to_qdot(model, q, v)
+        (tq, f), info = contact_wrenches(model, q, v, jc, return_info=True)
+        return dict(
+            fk_R=R, fk_p=p, bv_w=w, bv_pd=pd, qdot=qdot,
+            v_back=jkin.qdot_to_v(model, q, qdot),
+            nplus=jkin.nplus_matrix(model, q),
+            tau=jdyn.inverse_dynamics(model, q, v, a),
+            M=jdyn.mass_matrix(model, q),
+            h=jdyn.bias_forces(model, q, v, (tq, f)),
+            qdd=jdyn.forward_dynamics(model, q, v, a, (tq, f)),
+            torques=tq, forces=f, info_phi=info.phi, info_normal=info.normal,
+            info_p_contact=info.p_contact, info_force=info.force,
+            step_tau=jtraj.step_tau(model, jc, q, v, a))
+
+    def traj_fn(q):
+        v = jtraj.velocities(model, prob, q)
+        return dict(traj_v=v, traj_a=jtraj.accelerations(prob, v),
+                    traj_tau=jtraj.generalized_forces(model, prob, jc, q),
+                    traj_cost=jtraj.cost(model, prob, jc, q))
+
+    out = jax.jit(jax.vmap(per_state))(
+        *(jnp.asarray(x[k]) for k in ("q", "v", "a")))
+    traj = jnp.asarray(x["traj"])
+    out.update(jax.jit(traj_fn)(traj))
+    parts = jax.jit(lambda q: id_partials(model, prob, jc, q))(traj)
+    out.update(dqm=parts[0], dqt=parts[1], dqp=parts[2])
+    _save(f"aos_{name}", **x, **{k: np.asarray(v) for k, v in out.items()})
+
+
+def reference(name):
+    """The JAX per-problem ``solve_trust_region`` on
+    tests/test_torch_reference_solve.py's problem (the example at its YAML
+    settings, cut as ``cut`` says), then one more iteration from its warm
+    start (``Delta0`` = the radius it ended with)."""
+    from idto_tpu.optimizer.solver import solve_trust_region
+    from tests import test_torch_reference_solve as tr
+
+    model, _, prob, params, q_guess = load_example(name)
+    prob, params, q_guess = tr.cut(name, prob, params, q_guess)
+    sol, stats, warm = jax.jit(
+        lambda q: solve_trust_region(model, prob, params, q))(q_guess)
+    one = params.replace(max_iterations=1)
+    again = jax.jit(lambda q, d: solve_trust_region(
+        model, prob, one, q, Delta0=d))(warm.q, warm.Delta)
+    _save(f"reference_{name}", q_guess=np.asarray(q_guess),
+          **_solved("", sol, stats, warm), **_solved("again_", *again))
+
+
 def main(argv):
     which = argv or ["slice", "constraints", "mpc", "fleet", "closed_loop",
                      "dynamics", "partials"]
@@ -1030,6 +1102,12 @@ def main(argv):
         bench_cheetah()
     if "f32_accept" in which:
         f32_accept()
+    for name in ("pendulum", "acrobot", "spinner", "mini_cheetah"):
+        if "aos" in which or f"aos:{name}" in which:
+            aos(name)
+    for name in ("pendulum", "spinner", "mini_cheetah"):
+        if "reference" in which or f"reference:{name}" in which:
+            reference(name)
 
 
 if __name__ == "__main__":

@@ -28,8 +28,8 @@ its import is checked here).
     cheetah's systems have condition ~1e10: both reductions are 1e-4 to
     0.3 off there, and two plain dense solves differ by 1e-8..1e-7.
   * The linsolve script's routes against a dense solve.
-  * None of the four entry points, nor ``chip_smoke.py``, imports ``jax``
-    or ``idto_tpu``.
+  * None of the four entry points, nor ``chip_smoke.py``, nor any module
+    of ``idto_tpu_torch``, imports ``jax`` or ``idto_tpu``.
 
 Regenerate the goldens with
 ``python scripts/make_torch_goldens.py bench f32_accept``.
@@ -271,6 +271,11 @@ def test_linsolve_hybrid_only_past_its_tail():
 _ENTRY_POINTS = ("bench_torch.py", "scripts/bench_torch_f32_accept.py",
                  "scripts/bench_torch_linsolve.py",
                  "scripts/bench_torch_calibrate_timing.py", "chip_smoke.py")
+# Every module of the port, the per-problem pipeline's included.
+_PORT_MODULES = tuple(sorted(
+    os.path.relpath(os.path.join(d, f), _REPO)
+    for d, _, files in os.walk(os.path.join(_REPO, "idto_tpu_torch"))
+    for f in files if f.endswith(".py")))
 
 
 def _imported_names(path):
@@ -288,19 +293,41 @@ def _is_jax_side(name):
     return top in ("jax", "jaxlib", "idto_tpu")
 
 
-@pytest.mark.parametrize("path", _ENTRY_POINTS)
-def test_entry_point_imports_neither_jax_nor_idto_tpu(path):
+def _module_name(path):
+    """An entry point imports by its file name from its directory; a
+    module of the port by its dotted name."""
+    if path.startswith("idto_tpu_torch" + os.sep):
+        return os.path.splitext(path)[0].replace(os.sep, ".")
+    return os.path.splitext(os.path.basename(path))[0]
+
+
+@pytest.fixture(scope="module")
+def fresh_imports():
+    """One fresh interpreter imports every entry point and module in turn;
+    after each import it records the JAX-side modules loaded so far.
+    Returns {path: that list}."""
+    paths = _ENTRY_POINTS + _PORT_MODULES
+    dirs = sorted({os.path.dirname(os.path.join(_REPO, p))
+                   for p in _ENTRY_POINTS})
+    code = (
+        "import importlib, json, sys; sys.path[:0] = {!r}; out = {{}}\n"
+        "for path, name in {!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    out[path] = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'idto_tpu')]\n"
+        "print(json.dumps(out))"
+    ).format([_REPO] + dirs, [(p, _module_name(p)) for p in paths])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=_REPO)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("path", _ENTRY_POINTS + _PORT_MODULES)
+def test_entry_point_imports_neither_jax_nor_idto_tpu(path, fresh_imports):
     """No import statement of the file names them, at any depth, and
-    importing it in a fresh interpreter loads neither."""
+    importing it in a fresh interpreter (after the entry points and modules
+    listed before it, none of which loaded them) loads neither."""
     full = os.path.join(_REPO, path)
     assert not [n for n in _imported_names(full) if _is_jax_side(n)]
-    module = os.path.splitext(os.path.basename(path))[0]
-    code = (
-        "import sys; sys.path[:0] = [{!r}, {!r}]; import {}; "
-        "print([m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'idto_tpu')])"
-    ).format(_REPO, os.path.dirname(full), module)
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120, cwd=_REPO)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert fresh_imports[path] == []

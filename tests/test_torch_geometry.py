@@ -49,6 +49,7 @@ from idto_tpu_torch.optimizer.problem import (
 )
 from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
 from idto_tpu_torch.soa import contact as tcon
+from idto_tpu_torch.utils.find_resource import find_resource
 
 from tests.test_torch_model import _assert_same
 
@@ -89,8 +90,8 @@ def hills_guesses(q_guess):
 
 
 def _hills_inputs():
-    cfg = ExampleConfig.load(os.path.join(
-        treg._DATA_ROOT, "examples", "configs", "mini_cheetah.yaml"))
+    cfg = ExampleConfig.load(
+        find_resource("idto_tpu/examples/configs/mini_cheetah.yaml"))
     cfg = hills_cfg(cfg)
     model = treg._mini_cheetah(hills=HILLS).finalize(device="cpu")
     prob = build_problem(cfg, model, device="cpu")
