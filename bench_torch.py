@@ -17,8 +17,16 @@ at the end, after one warm call: 50, 20 and 5 calls.  Batches above
 ``CHUNK`` are micro-batched from the host.  Then ``mpc_initialize``, one
 warm ``mpc_step`` and 30 chained replans 0.016 s apart.
 
+On the card every call replays captured CUDA graphs (``utils/graphs.py``,
+the counterpart of the jitted calls ``bench.py`` times): each batch starts
+from no graph, and its warm call captures them (its seconds are printed,
+as the capture's, and stay out of the times, as ``bench.py``'s compile).
+An earlier line gives the eager route's B=1 and B=256 calls and replans
+(under ``graphs.eager()``; fewer calls: ``EAGER_CALLS``, ``EAGER_REPLANS``).
+
 Times come from CUDA events and a synchronize; nothing is subtracted.
-Peak memory is ``max_memory_allocated`` over a batch's calls.  The
+Peak memory is ``max_memory_allocated`` over a batch's calls, its capture
+included (the graphs' memory pool counts).  The
 Newton-quality share is the share of scenarios whose step was a Newton
 step, not the contained Cauchy step that replaces a Newton solve failing
 the residual acceptance (the solver's FACTORIZATION_FAILED flag, which the
@@ -43,6 +51,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,13 +73,19 @@ from idto_tpu_torch.parallel.batching import (
     map_scenarios,
     solve_batch,
 )
-from idto_tpu_torch.utils import timing
+from idto_tpu_torch.utils import graphs, timing
 
 # Scenarios a call of ``solve_batch`` takes; larger batches are split into
-# calls of this many from the host, one after the other.
-CHUNK = 4096
+# calls of this many from the host, one after the other.  On the captured
+# route four calls of 1024 take as long as one of 4096 (16.45 against 16.53
+# s on an H100 at 700 W) at a quarter of the peak (13.7 against 54.4 GiB),
+# and leave room for an eager pass beside the graphs (PERF.md §5).
+CHUNK = 1024
 BATCHES = (1, 256, 4096)
 REPLANS = 30
+# Timed calls of the eager route's line, by batch, and its replans.
+EAGER_CALLS = {1: 10, 256: 5}
+EAGER_REPLANS = 10
 REPLAN_DT = 0.016
 # The reference's real-time budget: one replan at its controller frequency
 # (mini_cheetah.yaml controller_frequency: 60), one solve a replan.
@@ -155,20 +170,27 @@ def check_finite(out, what):
 
 
 def measure_batch(step, probs, qg, calls, device):
-    """One warm call, then ``calls`` chained calls with one wait.  Returns
-    (seconds a call, [seconds of each call], the last output, peak GiB or
-    None on the CPU, share of the solves the Thomas rescue re-solved)."""
+    """One warm call (from no captured graph: it captures them), then
+    ``calls`` chained calls with one wait.  Returns (seconds a call,
+    [seconds of each call], the last output, peak GiB or None on the CPU,
+    share of the solves the Thomas rescue re-solved); the warm call's
+    seconds are left in ``measure_batch.warm_seconds``."""
     on_cuda = torch.device(device).type == "cuda"
+    graphs.reset()
     if on_cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     batched.rescued = 0
+    timing.sync(device)
+    t0 = time.perf_counter()
     out = step(probs, qg)
     timing.sync(device)
+    warm_s = time.perf_counter() - t0
     total, per_call, out = timing.time_chain(
         lambda i, prev: step(probs, prev[0]), out, calls, device)
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_cuda else None
     rescued = batched.rescued / (qg.shape[0] * (calls + 1))
+    measure_batch.warm_seconds = warm_s
     return total / calls, per_call, out, peak, rescued
 
 
@@ -179,15 +201,17 @@ def count_flops(step, probs, qg, width):
 
     sl = slice(0, width)
     counter = FlopCounterMode(display=False)
-    with counter:
+    # Eagerly: a replay dispatches no op for the counter to see.
+    with counter, graphs.eager():
         step(map_scenarios(lambda x: x[sl], probs), qg[sl])
     return counter.get_total_flops()
 
 
 def replan_ms(model, cfg, prob, params, q_guess, replans, device):
-    """``mpc_initialize``, one warm replan at t = 0, then ``replans``
-    chained replans REPLAN_DT apart from the initial state, one wait at the
-    end: ms a replan."""
+    """``mpc_initialize``, one warm replan at t = 0 (it captures the
+    replan's graphs), then ``replans`` chained replans REPLAN_DT apart from
+    the initial state, each time a device tensor, one wait at the end: ms
+    a replan."""
     mpc_params = make_mpc_params(params, 1)
     rel = np.asarray(cfg.q_nom_relative_to_q_init
                      if cfg.q_nom_relative_to_q_init is not None
@@ -197,8 +221,8 @@ def replan_ms(model, cfg, prob, params, q_guess, replans, device):
     carry, _ = mpc_initialize(model, probs, params, q_guess[None])
 
     def replan(i, prev):
-        return mpc_step(model, probs, mpc_params, rel, prev[0], x0,
-                        REPLAN_DT * i)
+        t = torch.full((), REPLAN_DT * i, dtype=x0.dtype, device=x0.device)
+        return mpc_step(model, probs, mpc_params, rel, prev[0], x0, t)
 
     out = replan(0, (carry,))
     timing.sync(device)
@@ -228,18 +252,39 @@ def percentile(xs, p):
     return xs[min(len(xs) - 1, max(0, int(np.ceil(p / 100 * len(xs))) - 1))]
 
 
+def eager_line(step, prob, q_guess, model, cfg, params, batches, seed,
+               iters, replans, device):
+    """The eager route's times (``graphs.eager()``): ms a call at B=1 and
+    B=256 (where benched) and ms a replan, chained as the captured ones."""
+    line = {}
+    with graphs.eager():
+        for batch in [b for b in (1, 256) if b in batches]:
+            probs, qg = batch_inputs(prob, q_guess, batch, seed)
+            calls = EAGER_CALLS[batch] if iters is None else iters
+            dt = measure_batch(step, probs, qg, calls, device)[0]
+            line[f"eager_ms_batch{batch}"] = round(1e3 * dt, 3)
+            del probs, qg
+        line["eager_mpc_replan_ms"] = round(replan_ms(
+            model, cfg, prob, params, q_guess,
+            EAGER_REPLANS if iters is None else replans, device), 3)
+    return line
+
+
 def run(linear_solver="penta_lu", dtype="float64", device="cuda", seed=0,
         batches=BATCHES, iters=None, replans=REPLANS, chunk=CHUNK):
     """The whole benchmark: (the result dictionary, {batch: q of the last
-    call})."""
+    call}).  The eager route's line and each batch's capture seconds are
+    logged before it."""
     if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     model, cfg, prob, params, q_guess = load(linear_solver, dtype, device)
     name, watts, smi = card(device)
     if smi is not None:
         log(f"nvidia-smi: {smi}")
-    cr_kernel.launches = 0
     step = make_step(model, params, chunk)
+    eager = eager_line(step, prob, q_guess, model, cfg, params, batches,
+                       seed, iters, replans, device)
+    cr_kernel.launches = 0
     result = {
         "metric": "mini_cheetah_mpc_solves_per_s",
         "unit": "solves/s",
@@ -255,6 +300,10 @@ def run(linear_solver="penta_lu", dtype="float64", device="cuda", seed=0,
         calls = calls_for(batch) if iters is None else iters
         dt, per_call, out, peak, rescued = measure_batch(
             step, probs, qg, calls, device)
+        eager[f"first_call_s_batch{batch}"] = round(
+            measure_batch.warm_seconds, 3)
+        eager[f"capture_s_batch{batch}"] = round(
+            sum(graphs.capture_seconds.values()), 3)
         check_finite(out, f"batch {batch}")
         last_q[batch] = out[0]
         if batch == 1:
@@ -287,8 +336,12 @@ def run(linear_solver="penta_lu", dtype="float64", device="cuda", seed=0,
                     "torch.func; flops_per_solve and measured_tflops are "
                     "left out")
         del probs, qg, out
+    graphs.reset()
     result["mpc_replan_ms"] = round(
         replan_ms(model, cfg, prob, params, q_guess, replans, device), 3)
+    eager["capture_s_replan"] = round(sum(graphs.capture_seconds.values()),
+                                      3)
+    log(f"eager route and captures: {json.dumps(eager)}")
     big = max(batches)
     headline = result.get(f"solves_per_s_batch{big}")
     result["value"] = headline

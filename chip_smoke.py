@@ -31,6 +31,31 @@ exits non-zero without the final result line:
                  launches (R = 1) of the same examples, dual_jaco's only
                  launch among them, and the closed loops' two launches at
                  B=1, likewise.
+  3a. graphs  -- the main path's captured CUDA graphs (``utils/graphs.py``)
+                 against the eager route (``graphs.eager()``), each row
+                 from no graph: the bench's cheetah solves (Thomas) at B=1,
+                 256 and the bench's CHUNK, one iteration and three, and
+                 at B=256 with cyclic reduction (the path's count is the
+                 wrapper's launches in one timed replayed call, 3; in every
+                 profiled call the profiler's device kernels named
+                 cr_solve equal the wrapper's launches); 30
+                 chained replans (the first 10 against the eager chain,
+                 one replan profiled); the velocity-command replan;
+                 ``TrajectoryOptimizer.Solve``; a hopper closed-loop
+                 segment.  At CHUNK a captured call is timed as the first
+                 call less its capture.  For each row the largest relative
+                 difference by field (1e-12 at most), ms a call of both
+                 routes, the capture's seconds and both peaks; host calls
+                 (kernel and graph launches, async copies,
+                 synchronizations) of a replayed call from the profiler: a
+                 Thomas replan makes no synchronization and at most 100
+                 launch calls, a B=1 iteration at most 100 and one
+                 synchronization.
+
+Every phase below runs the main path on its captured graphs (the first
+call of each configuration captures them); the kernel's launches are
+counted through the replays.
+
   4. slice    -- the batched mini-cheetah Gauss-Newton trust-region solve
                  (cyclic reduction, float64, 3 iterations) through
                  ``solve_batch`` on the card; the kernel's launch count
@@ -90,7 +115,8 @@ exits non-zero without the final result line:
                  timed beside its bound, the plain version and a dense
                  library solve; (a) the cheetah with three cylinder hills
                  at B=256, two iterations, with a warm iteration and the
-                 launch count against the plain cheetah's; (b) a pad whose
+                 device's kernel count (the solves replay graphs) against
+                 the plain cheetah's; (b) a pad whose
                  collision geometry is the hull of an OBJ ``<mesh>`` loaded
                  through an SDF file, B=256, T=20, against the box pad and
                  the CPU; (c) one CONVEX-BOX ``contact_wrenches`` and its
@@ -135,7 +161,7 @@ exits non-zero without the final result line:
                  each scenario) against ``native=True``; (d) the hull pad's
                  pair through the AoS ``signed_distance`` against the SoA
                  kernel, beyond the AoS answer's own rounding spread.
- 14. times    -- one solve iteration at several batch sizes; the kernel,
+ 14. times    -- the kernel,
                  the whole ``solve_many`` call, the plain version and a
                  dense library solve at the cheetah shape, with CUDA
                  events, beside the least time the card could take; the
@@ -148,6 +174,7 @@ then ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -349,6 +376,21 @@ BENCH_KEYS = ("latency_ms_batch1", "flops_per_solve", "measured_tflops",
 BENCH_BATCH_KEYS = ("newton_share_batch{}", "peak_gib_batch{}",
                     "rescue_share_batch{}")
 
+# The graphs phase: the bench's cheetah solves at these batches and at the
+# bench's CHUNK, each at these iteration counts (Thomas), and a
+# cyclic-reduction solve at GRAPHS_CR_BATCH; chained replans.  The captured
+# route replays the eager route's kernels on inputs of the same layout, so
+# the two should agree bitwise; 1e-12 relative is the bound held.  A
+# Thomas replan and a B=1 iteration may make at most GRAPHS_MAX_HOST_CALLS
+# host launch calls (graph launches, kernel launches and async copies).
+GRAPHS_BATCHES = (1, 256)
+GRAPHS_ITERS = (1, 3)
+GRAPHS_CR_BATCH = 256
+GRAPHS_REPLANS = 30
+GRAPHS_EAGER_REPLANS = 10
+GRAPHS_RTOL = 1e-12
+GRAPHS_MAX_HOST_CALLS = 100
+
 # Peak rates of one H100 SXM (NVIDIA H100 data sheet): HBM3 bandwidth;
 # float64 on the tensor cores and on the FMA pipes; float32 on the FMA
 # pipes (the kernel uses no TF32).
@@ -391,12 +433,8 @@ HULL_TOL = 1e-9
 STATS_ROWS = ("cost", "rho", "delta", "dq_norm", "grad_norm", "h_norm",
               "merit", "solver_flag")
 KERNEL_BATCHES = (1, 256, 4096)
-ITER_BATCHES = (1, 256, 4096)
 REPS = 5  # timed calls per measurement
-# A solve iteration at a batch above this is timed over 1 call: one takes
-# seconds, and the script has a time limit to keep.
-FEW_REPS_ABOVE = 256
-# Device memory the timing phase may plan to use for one solve iteration.
+# Device memory the fleet phase may plan to use for one solve.
 MEMORY_BUDGET = 0.85
 
 
@@ -1747,7 +1785,10 @@ def solve_on(device, inputs, nref=None):
 
 def launch_count(fn):
     """CUDA kernel launches of one call of fn, from torch.profiler's host
-    events, its device-busy share and its profiled wall ms.  The profiler's
+    events, its device-busy share and its profiled wall ms; the kernels the
+    device ran (its records other than copies and fills, replays of
+    captured graphs included) in ``launch_count.device_kernels``.  The
+    profiler's
     raw events are read as they come: building its per-name averages takes
     a minute and more for the ~10^5 launches of a hull evaluation."""
     import collections
@@ -1763,12 +1804,13 @@ def launch_count(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    launches, busy_ns = 0, 0
+    launches, busy_ns, kernels = 0, 0, 0
     host = collections.Counter()
     counts = collections.Counter()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             busy_ns += e.duration_ns()
+            kernels += not e.name().startswith(("Memcpy", "Memset"))
             continue
         name = e.name()
         launches += name.startswith("cudaLaunchKernel")
@@ -1778,6 +1820,7 @@ def launch_count(fn):
         f"{name} {ns / 1e6:.0f} ms ({counts[name]})"
         for name, ns in host.most_common(6)))
     launch_count.host_calls = counts
+    launch_count.device_kernels = kernels
     return launches, busy_ns / 1e6 / wall_ms, wall_ms
 
 
@@ -1843,14 +1886,18 @@ def phase_geometry(seed):
     for tag in ("plain", "hills", "hills", "plain"):
         warm[tag].append(1e3 * solve_on(
             "cuda", hills_one if tag == "hills" else plain)[2])
-    prof = {tag: launch_count(lambda: solve_on("cuda", x)) for tag, x in (
-        ("hills", hills_one), ("plain", plain))}
+    # The solves replay captured graphs, so the host launches no kernel of
+    # theirs: the device's kernels measure what the hills add.
+    prof, kernels = {}, {}
+    for tag, x in (("hills", hills_one), ("plain", plain)):
+        prof[tag] = launch_count(lambda: solve_on("cuda", x))
+        kernels[tag] = launch_count.device_kernels
     numbers.update(
         hills_iteration_ms=min(warm["hills"]),
         plain_iteration_ms=min(warm["plain"]),
         hills_first_call_s=seconds,
-        hills_launches_per_iteration=prof["hills"][0],
-        plain_launches_per_iteration=prof["plain"][0],
+        hills_device_kernels_per_iteration=kernels["hills"],
+        plain_device_kernels_per_iteration=kernels["plain"],
         hills_device_busy_share=prof["hills"][1],
         plain_device_busy_share=prof["plain"][1], hills_peak_gib=peak)
     log("geometry", f"(a) mini_cheetah + {HILLS} hills ({len(pairs)} pairs, "
@@ -1861,8 +1908,8 @@ def phase_geometry(seed):
                         f"{x:.1f}" for x in warm["hills"])
                     + " ms against the plain cheetah's " + " / ".join(
                         f"{x:.1f}" for x in warm["plain"])
-                    + f" ms; profiled: {prof['hills'][0]} CUDA launches "
-                    f"against {prof['plain'][0]}, device busy "
+                    + f" ms; profiled: {kernels['hills']} device kernels "
+                    f"against {kernels['plain']}, device busy "
                     f"{100 * prof['hills'][1]:.1f}% against "
                     f"{100 * prof['plain'][1]:.1f}% (profiled walls "
                     f"{prof['hills'][2]:.0f} / {prof['plain'][2]:.0f} ms); "
@@ -2340,40 +2387,12 @@ def phase_parallel(seed):
 
 
 def phase_times(seed, reps):
-    """Solve-iteration and kernel times; returns the kernel's numbers at
-    the main path's batch for the result line."""
+    """Kernel times (the solve's iteration times are the graphs phase's);
+    returns the kernel's numbers at the main path's batch for the result
+    line."""
     import torch
 
-    from idto_tpu_torch.ops import cr_kernel
-    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
-
-    total = torch.cuda.mem_get_info()[1]
-    peak_per_scenario = None
-    for batch in ITER_BATCHES:
-        if peak_per_scenario is not None:
-            need = peak_per_scenario * batch
-            if need > MEMORY_BUDGET * total:
-                log("times", f"iteration B={batch}: not run, predicted peak "
-                             f"{need / 2**30:.1f} GiB of {total / 2**30:.1f}")
-                continue
-        model, prob, params, qg = cheetah_inputs(batch, seed, "cuda")
-        params = params.replace(max_iterations=1)
-        probs = broadcast_problem(prob, batch)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        n = reps if batch <= FEW_REPS_ABOVE else 1
-        ms = cuda_time_ms(lambda: solve_batch(model, probs, params, qg), n)
-        peak = torch.cuda.max_memory_allocated()
-        if batch > 1:
-            peak_per_scenario = (peak - base) / batch
-        log("times", f"iteration B={batch}: {ms:.3f} ms median of {n} "
-                     f"(solve_batch, max_iterations=1), peak "
-                     f"{peak / 2**30:.3f} GiB")
-        del model, prob, params, qg, probs
-        torch.cuda.empty_cache()
-
-    from idto_tpu_torch.ops import penta
+    from idto_tpu_torch.ops import cr_kernel, penta
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     at_main = None
@@ -2494,6 +2513,299 @@ def phase_bench(seed):
         del last_q
         torch.cuda.empty_cache()
     return launches, results
+
+
+def tree_tensors(x):
+    """The tensors of a result (Solution, Stats, carries, tuples), with
+    their field names."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [("", x)]
+    if dataclasses.is_dataclass(x):
+        items = [(f.name, getattr(x, f.name)) for f in dataclasses.fields(x)]
+    elif isinstance(x, dict):
+        items = list(x.items())
+    elif isinstance(x, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(x)]
+    else:
+        return []
+    return [(f"{k}.{n}" if n else k, t) for k, v in items
+            for n, t in tree_tensors(v)]
+
+
+def route_diff(got, want):
+    """{field: relative max difference} of two results of the same call;
+    non-finite entries must sit at the same places."""
+    import torch
+
+    out = {}
+    for (name, x), (_, y) in zip(tree_tensors(got), tree_tensors(want)):
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if x.shape != y.shape:
+            raise AssertionError(f"graphs: {name} shape {tuple(x.shape)} "
+                                 f"against {tuple(y.shape)}")
+        if not x.is_floating_point():
+            out[name] = 0.0 if torch.equal(x, y) else float("inf")
+            continue
+        fin = torch.isfinite(y)
+        if not torch.equal(torch.isfinite(x), fin):
+            out[name] = float("inf")
+        elif fin.any():
+            out[name] = rel_err(x[fin], y[fin])
+        else:
+            out[name] = 0.0
+    return out
+
+
+def host_calls(fn):
+    """Host calls of one call of fn from the profiler's raw events, as
+    ``launch_count`` reads them: kernel launches, graph launches, async
+    copies, synchronizations (what an empty window counts taken off), the
+    device's kernels, those named cr_solve, and their summed ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = dict.fromkeys(("cudaLaunchKernel", "cudaGraphLaunch",
+                           "cudaMemcpyAsync", "synchronizations",
+                           "device_cr_solve", "device_kernels",
+                           "device_busy_ms"), 0)
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() == DeviceType.CUDA:
+                n["device_kernels"] += 1
+                n["device_cr_solve"] += "cr_solve" in name
+                n["device_busy_ms"] += e.duration_ns() / 1e6
+                continue
+            for key in ("cudaLaunchKernel", "cudaGraphLaunch",
+                        "cudaMemcpyAsync"):
+                n[key] += name.startswith(key)
+            n["synchronizations"] += "Synchronize" in name
+        return n
+
+    # What an empty window counts on the host (the closing synchronize) is
+    # taken off; the device's records are fn's alone.
+    if not hasattr(host_calls, "empty"):
+        host_calls.empty = count(lambda: None)
+    n = {k: v - (0 if k.startswith("device_") else host_calls.empty[k])
+         for k, v in count(fn).items()}
+    n["host_launch_calls"] = (n["cudaLaunchKernel"] + n["cudaGraphLaunch"]
+                              + n["cudaMemcpyAsync"])
+    return n
+
+
+def graphs_row(tag, call, timed=True, profiled=True, eager_call=None):
+    """``call()`` eagerly (``graphs.eager()``) and through captured graphs
+    from none (the first call captures them; then a timed replay and a
+    profiled one): the routes' largest relative difference by field, ms
+    a call of each, the capture's seconds, each route's peak GiB, the
+    wrapper's launches in the timed replay (the main path's run: the count
+    is set to 0 just before it) and the profiler's host calls.  The
+    profiler's device kernels named cr_solve must equal the wrapper's
+    launches in the profiled call.
+    Without ``timed`` the captured ms are those of the first call less its
+    capture.  ``eager_call`` runs in place of ``call`` on the eager route
+    (a shorter chain: the captured results are compared as far as it
+    goes); ``profiled`` may be a call of its own to profile."""
+    import torch
+
+    from idto_tpu_torch.ops import cr_kernel
+    from idto_tpu_torch.utils import graphs
+
+    def run(fn, eager=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (graphs.eager() if eager else contextlib.nullcontext()):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    graphs.reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    want, eager_ms = run(eager_call or call, eager=True)
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    first, first_ms = run(call)
+    capture_s = sum(graphs.capture_seconds.values())
+    n_graphs = graphs.captures
+    row = {"eager_ms": eager_ms, "first_call_ms": first_ms,
+           "capture_s": capture_s, "graphs": n_graphs,
+           "eager_peak_gib": eager_peak}
+    diffs = route_diff(first, want)
+    del first
+    if timed:
+        cr_kernel.launches = 0
+        got, row["ms"] = run(call)
+        row["kernel_launches"] = cr_kernel.launches
+        diffs = {k: max(v, d) for (k, v), d in zip(
+            diffs.items(), route_diff(got, want).values())}
+        del got
+    else:
+        row["ms"] = first_ms - 1e3 * capture_s
+    row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if profiled:
+        cr_kernel.launches = 0
+        row["host_calls"] = host_calls(call if profiled is True
+                                       else profiled)
+        row["profiled_kernel_launches"] = cr_kernel.launches
+        if row["host_calls"]["device_cr_solve"] != cr_kernel.launches:
+            raise AssertionError(
+                f"graphs: {tag}: the profiler saw "
+                f"{row['host_calls']['device_cr_solve']} cr_solve kernels, "
+                f"the wrapper counted {cr_kernel.launches} launches")
+    if graphs.captures != n_graphs:
+        raise AssertionError(f"graphs: {tag} captured again on a replay")
+    row["max_rel_diff"] = max(diffs.values())
+    row["nonzero_diff"] = {k: v for k, v in diffs.items() if v}
+    log("graphs", f"{tag}: eager {eager_ms:.1f} ms, captured "
+                  f"{row.get('ms', float('nan')):.1f} ms (first call "
+                  f"{first_ms:.1f} ms, {n_graphs} graphs in {capture_s:.2f} "
+                  f"s), peak {eager_peak:.3f} / {row['peak_gib']:.3f} GiB, "
+                  f"max rel diff {row['max_rel_diff']:.3e}"
+                  + (f" {row['nonzero_diff']}" if row["nonzero_diff"] else "")
+                  + (f", host calls {row['host_calls']}" if profiled else ""))
+    if not row["max_rel_diff"] <= GRAPHS_RTOL:
+        raise AssertionError(f"graphs: {tag}: captured and eager differ by "
+                             f"{row['max_rel_diff']:.3e}")
+    del want
+    graphs.reset()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_graphs(seed):
+    """The captured route against the eager one on the main paths; returns
+    ({path: kernel launches}, numbers)."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from idto_tpu_torch.api import TrajectoryOptimizer
+    from idto_tpu_torch.examples.registry import load_example
+    from idto_tpu_torch.mpc import controller as mpc
+    from idto_tpu_torch.mpc.simulator import simulate_segment
+    from idto_tpu_torch.ops import cr_kernel
+    from idto_tpu_torch.optimizer.problem import LinearSolverType
+    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+
+    rows, launches = {}, {}
+    model, cfg, prob, params, q_guess = bench_torch.load(
+        "penta_lu", "float64", "cuda")
+    # The bench's cheetah solves (Thomas): B=1, 256 and CHUNK, one
+    # iteration and three; a cyclic-reduction row for the kernel's count.
+    for batch in GRAPHS_BATCHES + (bench_torch.CHUNK,):
+        probs, qg = bench_torch.batch_inputs(prob, q_guess, batch, seed)
+        for iters in GRAPHS_ITERS:
+            p = params.replace(max_iterations=iters)
+            small = batch <= max(GRAPHS_BATCHES)
+            rows[f"cheetah_B{batch}_iters{iters}"] = graphs_row(
+                f"cheetah B={batch} {iters} iteration(s) Thomas",
+                lambda: solve_batch(model, probs, p, qg), timed=small,
+                profiled=small)
+        del probs, qg
+    probs, qg = bench_torch.batch_inputs(prob, q_guess, GRAPHS_CR_BATCH,
+                                         seed)
+    p = params.replace(max_iterations=3,
+                       linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+    row = graphs_row(f"cheetah B={GRAPHS_CR_BATCH} 3 iterations CR",
+                     lambda: solve_batch(model, probs, p, qg))
+    launches["graphs_cheetah_cr"] = row["kernel_launches"]
+    rows[f"cheetah_B{GRAPHS_CR_BATCH}_iters3_cr"] = row
+    # The wrapper counts each replay's launch; the profiler's device
+    # records of the replayed kernels are set beside it (graphs_row has
+    # held them equal in the profiled call).
+    seen = row["host_calls"]["device_cr_solve"]
+    log("graphs", f"cr_solve a 3-iteration call: {row['kernel_launches']} "
+                  f"launches (wrapper, through replays), {seen} device "
+                  f"kernels named cr_solve (profiler)")
+    if not row["kernel_launches"] == seen == 3:
+        raise AssertionError(f"graphs: CR launches {row['kernel_launches']} "
+                             f"(wrapper) and {seen} (device)")
+    del probs, qg
+
+    # 30 chained replans (mpc_iters 1, Thomas) from one carry.
+    probs = broadcast_problem(prob, 1)
+    mp = mpc.make_mpc_params(params, 1)
+    rel = np.asarray(cfg.q_nom_relative_to_q_init, dtype=np.float64)
+    x0 = torch.cat([prob.q_init, prob.v_init])[None]
+    carry0, _ = mpc.mpc_initialize(model, probs, params, q_guess[None])
+    times = [torch.full((), MPC_DT * (i + 1), dtype=x0.dtype, device="cuda")
+             for i in range(GRAPHS_REPLANS)]
+
+    def chain(n):
+        carry, sols = carry0, []
+        for t in times[:n]:
+            carry, sol = mpc.mpc_step(model, probs, mp, rel, carry, x0, t)
+            sols.append(sol)
+        return sols
+
+    # The eager chain is the first GRAPHS_EAGER_REPLANS of them; one replan
+    # is profiled on the captured graphs.
+    row = graphs_row(
+        f"cheetah {GRAPHS_REPLANS} chained replans (the first "
+        f"{GRAPHS_EAGER_REPLANS} against the eager route)",
+        lambda: chain(GRAPHS_REPLANS),
+        eager_call=lambda: chain(GRAPHS_EAGER_REPLANS),
+        profiled=lambda: mpc.mpc_step(model, probs, mp, rel, carry0, x0,
+                                      times[0]))
+    row["ms_a_replan"] = row["ms"] / GRAPHS_REPLANS
+    row["eager_ms_a_replan"] = row["eager_ms"] / GRAPHS_EAGER_REPLANS
+    rows["cheetah_replans"] = row
+    calls = row["host_calls"]
+    if calls["synchronizations"] != 0 or calls["host_launch_calls"] > \
+            GRAPHS_MAX_HOST_CALLS:
+        raise AssertionError(f"graphs: a Thomas replan made {calls}")
+    # A B=1 iteration: the 3-iteration solve less the 1-iteration one.
+    c3 = rows["cheetah_B1_iters3"]["host_calls"]
+    c1 = rows["cheetah_B1_iters1"]["host_calls"]
+    per_iteration = {k: (c3[k] - c1[k]) / 2 for k in c3}
+    rows["cheetah_B1_per_iteration"] = per_iteration
+    log("graphs", f"a B=1 cheetah iteration: {per_iteration}")
+    if not (per_iteration["host_launch_calls"] <= GRAPHS_MAX_HOST_CALLS
+            and per_iteration["synchronizations"] <= 1):
+        raise AssertionError(f"graphs: a B=1 iteration made {per_iteration}")
+
+    # The velocity-command replan, from the same carry.
+    cmd = torch.tensor([0.4, 0.0, 0.3], dtype=x0.dtype, device="cuda")
+    rows["velocity_command_replan"] = graphs_row(
+        "cheetah velocity-command replan",
+        lambda: mpc.mpc_step_velocity_command(model, probs, mp, carry0, x0,
+                                              times[0], cmd))
+    # TrajectoryOptimizer.Solve: 3 iterations from the YAML guess.
+    opt = TrajectoryOptimizer(model, prob, params.replace(max_iterations=3))
+    rows["api_solve"] = graphs_row(
+        "TrajectoryOptimizer.Solve (cheetah, 3 iterations)",
+        lambda: opt.Solve(q_guess), profiled=False)
+    del carry0, opt
+
+    # One closed-loop segment of the hopper under its stored plan.
+    model, cfg, prob, params, q_guess = load_example("hopper", device="cuda")
+    carry, _ = mpc.mpc_initialize(model, broadcast_problem(prob, 1),
+                                  params.replace(max_iterations=2),
+                                  q_guess[None])
+    Kp = torch.as_tensor(np.asarray(cfg.Kp, dtype=np.float64), device="cuda")
+    Kd = torch.as_tensor(np.asarray(cfg.Kd, dtype=np.float64), device="cuda")
+    substeps = max(1, int(round(1.0 / cfg.controller_frequency
+                                / cfg.sim_time_step)))
+    t = torch.zeros((), dtype=torch.float64, device="cuda")
+    rows["hopper_segment"] = graphs_row(
+        f"hopper closed-loop segment ({substeps} substeps)",
+        lambda: simulate_segment(model, params.contact, cfg.sim_time_step,
+                                 substeps, carry.stored, Kp, Kd,
+                                 prob.q_init[None], prob.v_init[None], t,
+                                 cfg.feed_forward))
+    return launches, rows
 
 
 def reference_states(model, q_guess, n, seed):
@@ -2713,6 +3025,7 @@ def phase_reference(seed):
                                                 q0[None]))):
         counts = []
         for f in (lambda: fn(model, prob, one, q0), closing):
+            f()  # warm: the batch-native solve captures its graphs here
             n_launch, busy, _ = launch_count(f)
             host = launch_count.host_calls
             counts.append((n_launch, sum(host[c] for c in host
@@ -2833,9 +3146,9 @@ def main(argv=None):
                     help="seed of the random systems and q guesses")
     ap.add_argument("--only", default=None, metavar="PHASE",
                     help="after the device and build phases run this one "
-                         "phase (kernel, slice, constraints, mpc, fleet, "
-                         "closed_loop, options, geometry, parallel, bench, "
-                         "reference, times) "
+                         "phase (kernel, graphs, slice, constraints, mpc, "
+                         "fleet, closed_loop, options, geometry, parallel, "
+                         "bench, reference, times) "
                          "and stop "
                          "without the result lines")
     args = ap.parse_args(argv)
@@ -2858,23 +3171,32 @@ def main(argv=None):
             "bench": lambda: phase_bench(args.seed),
             "reference": lambda: phase_reference(args.seed),
             "times": lambda: phase_times(args.seed, REPS),
+            "graphs": lambda: phase_graphs(args.seed),
         }[args.only]
         phase()
         log("only", f"{args.only} passed; no result lines")
         return
     seconds = {}
 
+    from idto_tpu_torch.utils import graphs
+
     def timed_phase(name, fn):
         t0 = time.perf_counter()
         out = fn()
         seconds[name] = time.perf_counter() - t0
-        log("time", f"the {name} phase: {seconds[name]:.1f} s")
+        log("time", f"the {name} phase: {seconds[name]:.1f} s "
+                    f"({graphs.captures} graphs captured)")
+        # Each phase captures its own graphs: their memory goes back.
+        graphs.reset()
+        torch.cuda.empty_cache()
         return out
 
     max_abs, schur, fleet_shapes, loop_shapes = timed_phase(
         "kernel", lambda: phase_kernel(gen))
-    by_path = {"cheetah_slice": timed_phase(
-        "slice", lambda: phase_slice(SLICE_BATCH, args.seed))}
+    by_path, graphs_numbers = timed_phase(
+        "graphs", lambda: phase_graphs(args.seed))
+    by_path["cheetah_slice"] = timed_phase(
+        "slice", lambda: phase_slice(SLICE_BATCH, args.seed))
     by_path["hopper_constraints"] = timed_phase(
         "constraints", lambda: phase_constraints(SLICE_BATCH, args.seed))
     by_path["mpc_replan"], replan_ms = timed_phase("mpc", phase_mpc)
@@ -2936,6 +3258,10 @@ def main(argv=None):
         # iteration against the batch-native one at B=1, their launches and
         # synchronizations an iteration, the errors between the two routes.
         "reference": reference_numbers,
+        # The graphs phase (float64): each path's captured route against
+        # the eager one -- largest relative difference, ms a call of each,
+        # capture seconds, peak GiB of each, host calls of a replayed call.
+        "graphs": graphs_numbers,
         # Host seconds of each phase of this run.
         "phase_seconds": seconds,
     }]}), flush=True)

@@ -126,17 +126,20 @@ def main(argv=None):
         t_now = k * replan
         cmd = torch.tensor(command_at(schedule, t_now), dtype=dtype,
                            device=device)
+        # The time as a device tensor: the step and the simulator replay
+        # their captured graphs with it (the first replan captures them).
+        t_dev = torch.full((), t_now, dtype=dtype, device=device)
         x0 = torch.cat([q, v], dim=1)
         sync()
         t0 = time.perf_counter()
         carry, sol = mpc_step_velocity_command(model, probs, mpc_params,
-                                               carry, x0, t_now, cmd)
+                                               carry, x0, t_dev, cmd)
         sync()
         solve_times.append(time.perf_counter() - t0)
         if viewer is not None:
             viewer.publish(sol.q[0])
         q, v, log = simulate_segment(sim_model, sim_contact, h, substeps,
-                                     carry.stored, Kp, Kd, q, v, t_now,
+                                     carry.stored, Kp, Kd, q, v, t_dev,
                                      cfg.feed_forward)
         q_log.append(log[0][0].cpu().numpy())
 

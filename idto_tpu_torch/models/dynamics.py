@@ -19,6 +19,7 @@ from torch.func import jacfwd, jvp, vjp
 from idto_tpu_torch.models import mat3
 from idto_tpu_torch.models.kinematics import body_velocities, v_to_qdot
 from idto_tpu_torch.models.model import Model
+from idto_tpu_torch.utils import linalg
 
 
 def body_accelerations(model: Model, q, v, a):
@@ -99,4 +100,4 @@ def forward_dynamics(
     to the host: a singular M gives inf / nan."""
     M = mass_matrix(model, q)
     h = bias_forces(model, q, v, external_wrenches)
-    return torch.linalg.solve_ex(M, tau_applied - h, check_errors=False).result
+    return linalg.solve(M, tau_applied - h)

@@ -13,7 +13,15 @@ One ``mpc_step`` call:
 The port has one solver, the batch-native one, so every tensor here leads
 with a scenario axis B (B robots replanned together; B = 1 for one), and
 ``prob`` is a problem whose tensors lead with B
-(``parallel.batching.broadcast_problem``).  ``mpc.runner.run_mpc`` closes
+(``parallel.batching.broadcast_problem``).
+
+On CUDA tensors a step is a chain of captured CUDA graphs
+(``utils/graphs.py``): steps 1-2, the solve's start, its iterations and
+its closing forces, and step 4, each replayed with the carry kept on the
+device.  ``t_now`` is a 0-d device tensor (a number becomes one by a fill
+on the device, never a host copy), so a new time costs no capture; with
+``mpc_iters: 1`` under the Thomas solver the host reads nothing inside a
+step, as the JAX package's jitted step.  ``mpc.runner.run_mpc`` closes
 the loop around it with ``mpc.simulator``.  ``mpc_step_velocity_command``
 replans from a commanded body velocity instead of a fixed nominal (the
 joystick-driven cheetah; ``examples/velocity_command.py``).
@@ -41,6 +49,7 @@ from idto_tpu_torch.optimizer.problem import (
     SolverParameters,
 )
 from idto_tpu_torch.optimizer.solver import Solution
+from idto_tpu_torch.utils import graphs
 from idto_tpu_torch.utils.consts import const
 from idto_tpu_torch.utils.structs import tensor_dataclass
 
@@ -60,6 +69,25 @@ def make_mpc_params(params: SolverParameters, mpc_iters: int) -> SolverParameter
     return params.replace(max_iterations=mpc_iters, check_convergence=False)
 
 
+def _as_time(t, like):
+    """``t`` as a 0-d tensor of like's dtype and device; a number is filled
+    in on the device (no host copy, no synchronization)."""
+    if isinstance(t, torch.Tensor):
+        return t.to(dtype=like.dtype, device=like.device)
+    return torch.full((), float(t), dtype=like.dtype, device=like.device)
+
+
+def _store(model, dt, sol, Delta, q_nom, t_now) -> MpcCarry:
+    """The carry of a solve: its splines stamped with ``t_now``."""
+    def fn(sol, Delta, q_nom, t_now):
+        return MpcCarry(
+            stored=StoredTrajectory.from_solution(model, sol, t_now, dt),
+            Delta=Delta, q_nom=q_nom)
+
+    return graphs.run("mpc.store", fn, (sol, Delta, q_nom, t_now),
+                      model=model, key=(dt,))
+
+
 def mpc_initialize(
     model: Model,
     prob: ProblemDefinition,
@@ -68,8 +96,9 @@ def mpc_initialize(
 ) -> tuple[MpcCarry, Solution]:
     """Initial full solve that seeds the warm start; q_guess (B, T+1, nq)."""
     sol, _, warm = solve_trust_region_batched(model, prob, params, q_guess)
-    stored = StoredTrajectory.from_solution(model, sol, 0.0, prob.dt)
-    return MpcCarry(stored=stored, Delta=warm.Delta, q_nom=prob.q_nom), sol
+    carry = _store(model, prob.dt, sol, warm.Delta, prob.q_nom,
+                   _as_time(0.0, q_guess))
+    return carry, sol
 
 
 def shift_nominal(model: Model, q_nom, q0, q_nom_relative):
@@ -170,6 +199,34 @@ def _warm_guess(carry, q0, prob, t_now):
     return torch.cat([q0[:, None], q_guess[:, 1:]], dim=1)
 
 
+def _replan(model, prob, mpc_params, carry, x0, t_now, nominal, key,
+            extra=None):
+    """One re-solve: ``nominal(prob, carry, q0, extra)`` gives the
+    problem's new nominal fields; returns (the new carry, the solution)."""
+    t_now = _as_time(t_now, x0)
+
+    def start(prob, carry, x0, t_now, extra):
+        nq = model.nq
+        q0 = x0[:, :nq]
+        # 1. Warm-start guess: resample the stored spline at shifted times.
+        q_guess = _warm_guess(carry, q0, prob, t_now)
+        # 2. The nominal trajectory of this replan.
+        prob_now = prob.replace(q_init=q0, v_init=x0[:, nq:],
+                                **nominal(prob, carry, q0, extra))
+        return prob_now, q_guess, carry.Delta, t_now
+
+    prob_now, q_guess, Delta, t_now = graphs.run(
+        "mpc.replan_start", start, (prob, carry, x0, t_now, extra),
+        model=model, key=key, clone=False)
+    # 3. Re-solve from the warm start with the carried trust radius.
+    sol, _, warm = solve_trust_region_batched(
+        model, prob_now, mpc_params, q_guess, Delta0=Delta
+    )
+    # 4. Store the solution spline.
+    return _store(model, prob.dt, sol, warm.Delta, prob_now.q_nom,
+                  t_now), sol
+
+
 def mpc_step(
     model: Model,
     prob: ProblemDefinition,
@@ -177,27 +234,16 @@ def mpc_step(
     q_nom_relative,  # (nq,) 0/1 mask, host data
     carry: MpcCarry,
     x0,  # (B, nq + nv) current state estimates
-    t_now: float,
+    t_now,  # 0-d tensor (or a number) on x0's device
 ) -> tuple[MpcCarry, Solution]:
-    nq = model.nq
-    q0 = x0[:, :nq]
-    v0 = x0[:, nq:]
+    rel = tuple(bool(x) for x in np.asarray(q_nom_relative, dtype=bool))
 
-    # 1. Warm-start guess: resample the stored spline at shifted times.
-    q_guess = _warm_guess(carry, q0, prob, t_now)
+    def nominal(prob, carry, q0, extra):
+        # Shift the nominal trajectory for relative DoFs.
+        return {"q_nom": shift_nominal(model, carry.q_nom, q0, rel)}
 
-    # 2. Shift the nominal trajectory for relative DoFs.
-    q_nom_new = shift_nominal(model, carry.q_nom, q0, q_nom_relative)
-
-    # 3. Re-solve from the warm start with the carried trust radius.
-    prob_now = prob.replace(q_init=q0, v_init=v0, q_nom=q_nom_new)
-    sol, _, warm = solve_trust_region_batched(
-        model, prob_now, mpc_params, q_guess, Delta0=carry.Delta
-    )
-
-    # 4. Store the solution spline.
-    stored = StoredTrajectory.from_solution(model, sol, t_now, prob.dt)
-    return MpcCarry(stored=stored, Delta=warm.Delta, q_nom=q_nom_new), sol
+    return _replan(model, prob, mpc_params, carry, x0, t_now, nominal,
+                   ("shift", rel))
 
 
 def mpc_step_velocity_command(
@@ -206,21 +252,17 @@ def mpc_step_velocity_command(
     mpc_params: SolverParameters,
     carry: MpcCarry,
     x0,  # (B, nq + nv) current state estimates
-    t_now: float,
+    t_now,  # 0-d tensor (or a number) on x0's device
     command,  # (B, 3) or (3,) commanded (vx, vy, wz), a tensor
 ) -> tuple[MpcCarry, Solution]:
     """``mpc_step`` with the nominal from a body-frame velocity command
     (``velocity_command_nominal``) in place of the shifted fixed nominal."""
-    nq = model.nq
-    q0 = x0[:, :nq]
-    v0 = x0[:, nq:]
-    q_guess = _warm_guess(carry, q0, prob, t_now)
-    q_nom_new, v_nom_new = velocity_command_nominal(model, prob, q0, command)
-    prob_now = prob.replace(
-        q_init=q0, v_init=v0, q_nom=q_nom_new, v_nom=v_nom_new
-    )
-    sol, _, warm = solve_trust_region_batched(
-        model, prob_now, mpc_params, q_guess, Delta0=carry.Delta
-    )
-    stored = StoredTrajectory.from_solution(model, sol, t_now, prob.dt)
-    return MpcCarry(stored=stored, Delta=warm.Delta, q_nom=q_nom_new), sol
+
+    def nominal(prob, carry, q0, command):
+        q_nom, v_nom = velocity_command_nominal(model, prob, q0, command)
+        return {"q_nom": q_nom, "v_nom": v_nom}
+
+    return _replan(model, prob, mpc_params, carry, x0, t_now, nominal,
+                   ("velocity_command",),
+                   torch.as_tensor(command, dtype=x0.dtype,
+                                   device=x0.device))

@@ -7,7 +7,10 @@ An initial full solve seeds the warm start, then the loop alternates
 
 The one-period lag models the solver's latency: the plan made at t_k is
 only tracked from t_{k+1} on.  One robot is simulated (B = 1 on the port's
-batch-leading tensors); the logs are host arrays.
+batch-leading tensors); the logs are host arrays.  Each replan's time goes
+to the step and the simulator as a 0-d device tensor, so that on the card
+both replay their captured graphs (the first of each captures them, and its
+time stays out of the means, as the JAX runner leaves out its compile).
 """
 from __future__ import annotations
 
@@ -99,7 +102,7 @@ def run_mpc(
     v = prob.v_init[None]
     logs, times, solve_times, sim_times = [], [], [], []
     for k in range(num_replans):
-        t_now = k * replan_period
+        t_now = torch.full((), k * replan_period, dtype=dtype, device=device)
         x0 = torch.cat([q, v], dim=1)
 
         _sync(x0)
@@ -110,7 +113,7 @@ def run_mpc(
         solve_times.append(time.perf_counter() - t0)
 
         if on_replan is not None:
-            on_replan(t_now, sol.q[0].cpu().numpy())
+            on_replan(k * replan_period, sol.q[0].cpu().numpy())
 
         # Simulate under the PREVIOUS stored trajectory (one-period delay),
         # on the simulation plant.
@@ -123,7 +126,7 @@ def run_mpc(
         sim_times.append(time.perf_counter() - t0)
         carry = new_carry
         logs.append(log)
-        times.append(t_now + np.arange(1, substeps + 1) * h)
+        times.append(k * replan_period + np.arange(1, substeps + 1) * h)
 
     def cat(i, width):
         if not logs:

@@ -14,22 +14,30 @@ from typing import Any
 
 import torch
 
+from idto_tpu_torch.utils import linalg
 from idto_tpu_torch.utils.structs import tensor_dataclass
 
 # LU factors of the (n-2) x (n-2) matrix tridiag(1, 4, 1), which depends on
-# the knot count alone: factored once per (n, dtype, device).
+# the knot count alone: factored once per (n, dtype, device).  A factor made
+# inside a CUDA graph capture would hold no values until a replay, so the
+# warm-up run before each capture (``utils/graphs.py``) fills this cache,
+# and a miss while capturing raises.
 _SYSTEMS: dict = {}
 
 
 def _natural_system(n, dtype, device):
     key = (n, dtype, str(device))
     if key not in _SYSTEMS:
+        if (torch.device(device).type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(f"spline system {key} first made inside a "
+                               "CUDA graph capture")
         A = (
             4.0 * torch.eye(n - 2, dtype=dtype, device=device)
             + torch.diag(torch.ones(n - 3, dtype=dtype, device=device), 1)
             + torch.diag(torch.ones(n - 3, dtype=dtype, device=device), -1)
         )
-        _SYSTEMS[key] = torch.linalg.lu_factor(A)
+        _SYSTEMS[key] = linalg.lu_factor(A)
     return _SYSTEMS[key]
 
 
@@ -41,8 +49,7 @@ def _natural_cubic_m(y, dt):
     if n < 3:
         return torch.zeros_like(y)
     rhs = 6.0 * (y[:, 2:] - 2.0 * y[:, 1:-1] + y[:, :-2]) / dt**2
-    M_inner = torch.linalg.lu_solve(
-        *_natural_system(n, y.dtype, y.device), rhs)
+    M_inner = linalg.lu_solve(*_natural_system(n, y.dtype, y.device), rhs)
     zero = torch.zeros_like(y[:, :1])
     return torch.cat([zero, M_inner, zero], dim=1)
 
@@ -86,7 +93,9 @@ class StoredTrajectory:
 
     @classmethod
     def from_solution(cls, model, solution, start_time, dt):
-        """u knots are B^T tau with the last step repeated."""
+        """u knots are B^T tau with the last step repeated.  ``start_time``
+        is a 0-d tensor on the solution's device (a number is copied there
+        from the host)."""
         u_knots = torch.einsum("vu,btv->btu", model.B.to(solution.tau.dtype),
                                solution.tau)
         u_knots = torch.cat([u_knots, u_knots[:, -1:]], dim=1)

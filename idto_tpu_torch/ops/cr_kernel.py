@@ -26,7 +26,12 @@ run-time-K engine.
 
 The kernel library is compiled from the package's sources with ``nvcc``
 at first use into ``build/idto_tpu_torch/`` at the repository root and
-loaded with ``ctypes``.  ``launches`` counts kernel launches.
+loaded with ``ctypes``.  ``launches`` counts kernel launches.  Inside a
+CUDA graph (``utils/graphs.py``) the wrapper runs once, at the capture,
+and launches nothing then: each replay of the graph adds the launches its
+capture recorded.  The kernel takes PyTorch's current stream (the capture
+stream while a graph is captured), and its output and scratch come from
+``torch.empty`` (the graph's memory pool).
 """
 from __future__ import annotations
 
@@ -35,12 +40,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 
 import torch
 
 from idto_tpu_torch.ops.cyclic_reduction import _pack_rhs, _pack_super_tridiag
 from idto_tpu_torch.ops.penta import PentaBands
+from idto_tpu_torch.utils import graphs
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "cr_solve.cu")
@@ -51,6 +58,7 @@ _MAX_SMEM = 232448
 
 launches = 0  # kernel launches since import (or since reset by the caller)
 _lib = None
+graphs.register_counter(sys.modules[__name__], "launches")
 
 
 def _nvcc() -> str:

@@ -29,6 +29,7 @@ from typing import Any
 import torch
 
 from idto_tpu_torch.ops.penta import PentaBands
+from idto_tpu_torch.utils import linalg
 from idto_tpu_torch.utils.structs import tensor_dataclass
 
 
@@ -104,7 +105,7 @@ def _inv(M):
     gives inf/nan instead of raising, which factorization_status reports."""
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand(
         M.shape)
-    return torch.linalg.solve_ex(M, eye, check_errors=False).result
+    return linalg.solve(M, eye)
 
 
 def _bmv(A, x):

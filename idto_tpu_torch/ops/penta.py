@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from idto_tpu_torch.utils import linalg
 from idto_tpu_torch.utils.structs import tensor_dataclass
 
 
@@ -126,7 +127,7 @@ class PentaFactorization:
 def _solve(A, B):
     """A^{-1} B by partial-pivot LU; a singular A gives inf/nan instead of
     raising, which factorization_status reports."""
-    return torch.linalg.solve_ex(A, B, check_errors=False).result
+    return linalg.solve(A, B)
 
 
 def factorize(H: PentaBands) -> PentaFactorization:

@@ -8,7 +8,9 @@
 The solve loop keeps no per-iteration host record, so the dumps replay the
 solve as repeated one-iteration warm-started solves (trajectory and trust
 radius carried; the adaptive scale factors re-derived).  q is one
-trajectory (T+1, nq); debug only, speed does not matter here.
+trajectory (T+1, nq); debug only, speed does not matter here.  Its own
+evaluations run eagerly, also on the card (the JAX package jits them; see
+``ROADMAP.md``); the solves it calls replay their captured graphs.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@
 assembled gradient.
 
 q is one trajectory (T+1, nq).  Every perturbed trajectory of a stencil
-point is one scenario of a single batched cost evaluation.
+point is one scenario of a single batched cost evaluation.  It runs
+eagerly, also on the card (a debug path; the JAX package jits it): no
+captured region of ``utils/graphs.py`` (queued in ``ROADMAP.md``).
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ With ``SolverParameters.record_iteration_times`` the solve loop calls
 :func:`reset` before its first iteration and :func:`mark` at the end of
 each one.  On the GPU each call records a CUDA event on the current stream
 and nothing waits for it inside the loop; :func:`collect` reads the events
-once, after the solve.  On the CPU they read ``time.perf_counter``.  The
+once, after the solve.  The events go between graph replays, never into a
+capture (a timing event cannot be captured): the loop marks an iteration
+after its replay.  On the CPU they read ``time.perf_counter``.  The
 first duration runs from :func:`reset`, each later one from the previous
 mark.  A batched solve has one clock for all its scenarios; :func:`attach`
 gives each scenario the times of the batch iterations it ran.
@@ -24,6 +26,8 @@ _start = None
 
 def _stamp(device):
     if device is not None and torch.device(device).type == "cuda":
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the iteration timer inside a graph capture")
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev

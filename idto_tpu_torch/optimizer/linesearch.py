@@ -12,7 +12,10 @@ kernel.
 Batch-first: every scenario searches along its own step.  A search step
 evaluates the cost of the whole batch, and scenarios whose search ended
 keep their values under a mask (the rule JAX applies to a vmapped
-``while_loop``); the loop reads one flag from the device a step.
+``while_loop``); the loop reads one flag from the device a step.  It runs
+eagerly, also on the card: the JAX package jits it, but a host read
+decides each search step, so it is not one of the captured regions of
+``utils/graphs.py`` (queued in ``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from idto_tpu_torch.optimizer.solver import (
 )
 from idto_tpu_torch.soa import rollout
 from idto_tpu_torch.soa.kinematics import normalize_quaternions
+from idto_tpu_torch.utils import linalg
 from idto_tpu_torch.utils.consts import index
 
 _C_ARMIJO = 1e-4
@@ -158,9 +162,9 @@ def _prepare(model, prob, params, qs, use_constraints):
         Hinv_JT = penta.solve_factorized_many(factor, J)
         S = torch.einsum("banq,bcnq->bac", J, Hinv_JT)
         Hinv_g = penta.solve_factorized(factor, g)
-        lam = torch.linalg.solve_ex(
-            S, (h - torch.einsum("banq,bnq->ba", J, Hinv_g))[..., None],
-            check_errors=False).result[..., 0]
+        lam = linalg.solve(
+            S, (h - torch.einsum("banq,bnq->ba", J, Hinv_g))[..., None]
+        )[..., 0]
         g = g + torch.einsum("banq,ba->bnq", J, lam)
     return cost, g, -penta.solve_factorized(factor, g)
 

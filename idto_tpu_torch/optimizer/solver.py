@@ -46,6 +46,7 @@ from idto_tpu_torch.optimizer.problem import (
 )
 from idto_tpu_torch.parallel import horizon as parallel_horizon
 from idto_tpu_torch.soa import rollout
+from idto_tpu_torch.utils import linalg
 from idto_tpu_torch.utils.consts import index
 from idto_tpu_torch.utils.structs import tensor_dataclass
 
@@ -124,6 +125,7 @@ class _Prepared(NamedTuple):
     solve_ok: Any  # (B,) Newton solve met the residual acceptance
     gs: Any  # scaled cost gradient D g
     Js: Any  # (B, n_h, T+1, nq) scaled constraint Jacobian J D, or None
+    p_raw: Any = None  # the Newton step before containment, when kept
 
 
 class _LoopState(NamedTuple):
@@ -205,8 +207,7 @@ class DenseFactor(NamedTuple):
 
 
 def _dense_factorize(Hd) -> DenseFactor:
-    LU, pivots, _ = torch.linalg.lu_factor_ex(Hd, check_errors=False)
-    return DenseFactor(LU, pivots)
+    return DenseFactor(*linalg.lu_factor(Hd))
 
 
 # Packed super-rows (counted as the next power of two) up to which
@@ -253,7 +254,7 @@ def _lin_solve_many(factor, rhs_stack):
     if isinstance(factor, DenseFactor):
         B, R = rhs_stack.shape[:2]
         b = rhs_stack.reshape(B, R, -1).transpose(1, 2)
-        x = torch.linalg.lu_solve(factor.LU, factor.pivots, b)
+        x = linalg.lu_solve(factor.LU, factor.pivots, b)
         return x.transpose(1, 2).reshape(rhs_stack.shape)
     if isinstance(factor, penta.PentaBands):
         return cr_kernel.solve_many(factor, rhs_stack)
@@ -321,12 +322,27 @@ def _constraint_jacobian_dense(model, prob, parts, unact):
     return J.reshape(-1, T * n_un, T + 1, nq)
 
 
+def print_dense_compare(Hs, g_merit, p_newton):
+    """Re-solve the Newton step of the scaled bands ``Hs`` densely and
+    print its relative difference from ``p_newton``, a line a scenario (a
+    debug option: a library solve and a host read)."""
+    Hd = penta.to_dense(Hs)
+    x_dense = torch.linalg.solve(
+        Hd, -g_merit.reshape(g_merit.shape[0], -1, 1)
+    ).reshape(g_merit.shape)
+    err = _bnorm(p_newton - x_dense) / torch.clamp_min(
+        _bnorm(x_dense), torch.finfo(g_merit.dtype).tiny)
+    for e in err.tolist():  # host read: a debug option
+        print(f"[debug] sparse vs. dense solve relative error: {e:.3e}")
+
+
 def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok,
-                 compare_dense=False) -> _Prepared:
+                 keep_raw=False) -> _Prepared:
     """From the scaled system and a factor of it: the multipliers and the
     merit (with constraints), the Newton step with its per-scenario
-    containment, and the Cauchy step.  ``compare_dense`` re-solves the
-    step densely and prints the relative difference, a line a scenario."""
+    containment, and the Cauchy step.  ``keep_raw`` keeps the step before
+    containment (``p_raw``) for the dense cross-check
+    (``print_dense_compare``), which the caller prints."""
     dtype = gs.dtype
     if Js is not None:
         # Lagrange multipliers: (J~ H~^-1 J~^T) lam = h - J~ H~^-1 g~.  All
@@ -336,8 +352,7 @@ def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok,
         Hinv_g, Hinv_JT = sols[:, 0], sols[:, 1:]
         S = torch.einsum("banq,bcnq->bac", Js, Hinv_JT)
         rhs = h - torch.einsum("banq,bnq->ba", Js, Hinv_g)
-        lam = torch.linalg.solve_ex(S, rhs[..., None],
-                                    check_errors=False).result[..., 0]
+        lam = linalg.solve(S, rhs[..., None])[..., 0]
         g_merit = gs + torch.einsum("banq,ba->bnq", Js, lam)
         merit = cost + _bsum(h * lam)
     else:
@@ -346,15 +361,7 @@ def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok,
         merit = cost
 
     p_newton = -_lin_solve(factor, g_merit)
-    if compare_dense:
-        Hd = penta.to_dense(Hs)
-        x_dense = torch.linalg.solve(
-            Hd, -g_merit.reshape(g_merit.shape[0], -1, 1)
-        ).reshape(g_merit.shape)
-        err = _bnorm(p_newton - x_dense) / torch.clamp_min(
-            _bnorm(x_dense), torch.finfo(dtype).tiny)
-        for e in err.tolist():  # host read: a debug option
-            print(f"[debug] sparse vs. dense solve relative error: {e:.3e}")
+    p_raw = p_newton if keep_raw else None
     Hg = _lin_matvec(Hs, g_merit)
     gg = _bsum(g_merit * g_merit)
     gHg = _bsum(g_merit * Hg)
@@ -377,7 +384,7 @@ def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok,
     return _Prepared(
         cost=cost, merit=merit, D=D, g_merit=g_merit, H=Hs, factor=factor,
         p_newton=p_newton, p_cauchy=p_cauchy, h=h, lam=lam, fact_ok=fact_ok,
-        solve_ok=solve_ok, gs=gs, Js=Js,
+        solve_ok=solve_ok, gs=gs, Js=Js, p_raw=p_raw,
     )
 
 
@@ -406,6 +413,11 @@ def _scaled(H, g, params, D_prev, diag):
     return D, penta.scale_by_diagonal(H, D), D * g
 
 
+def compares_dense(params: SolverParameters) -> bool:
+    """The dense cross-check of each Newton step runs (a banded solve)."""
+    return params.debug_compare_against_dense and not _use_dense(params)
+
+
 def _prepare_from_physics(
     model, prob, params: SolverParameters, q, D_prev, cost, v, tau, parts,
     nplus, horizon=None, cost_fn=None,
@@ -415,7 +427,9 @@ def _prepare_from_physics(
     containment, and the Cauchy step, from already evaluated physics.
     ``horizon`` routes cyclic reduction through the distributed solve
     (``_sparse_factorize``); ``cost_fn`` is the cost the exact Hessian
-    differentiates (``_exact_hessian_dense``)."""
+    differentiates (``_exact_hessian_dense``).  With the dense cross-check
+    (``compares_dense``) the Newton step before containment is kept in
+    ``p_raw``."""
     B = q.shape[0]
     g = gradient_from_partials(model, prob, parts, nplus, q, v, tau)
     if _use_dense(params):
@@ -442,8 +456,7 @@ def _prepare_from_physics(
         Js = None
     return _newton_tail(
         cost, D, Hs, gs, h, Js, factor, _factor_status(factor, B, q.device),
-        compare_dense=(params.debug_compare_against_dense
-                       and not _use_dense(params)),
+        keep_raw=compares_dense(params),
     )
 
 
@@ -584,7 +597,9 @@ def solve_trust_region(model, prob, params, q_guess, Delta0=None):
 
     ``params.method`` is not read: this is the trust region.  The loop
     reads one flag from the device an iteration (whether it is done), and
-    the verbose table reads its row."""
+    the verbose table reads its row.  It runs eagerly, also on the card:
+    the reference the captured batch-native route is held against, not
+    one of the regions of ``utils/graphs.py``."""
     dtype, device = q_guess.dtype, q_guess.device
     K = params.max_iterations
     Delta = torch.as_tensor(params.Delta0 if Delta0 is None else Delta0,
@@ -604,6 +619,8 @@ def solve_trust_region(model, prob, params, q_guess, Delta0=None):
     k = 0
     while k < K:
         prep = _prepare(model, prob, params, q[0], D)
+        if compares_dense(params):
+            print_dense_compare(prep.H, prep.g_merit, prep.p_raw)
         dq_scaled, dq, boundary_active = _dogleg(prep, Delta)
 
         # ---- trust ratio ----

@@ -18,6 +18,7 @@ from torch.func import jvp, vjp
 from idto_tpu_torch.models.model import Model
 from idto_tpu_torch.soa import mat3
 from idto_tpu_torch.soa.kinematics import body_velocities, v_to_qdot
+from idto_tpu_torch.utils import linalg
 
 
 def body_accelerations(model: Model, q, v, a):
@@ -127,5 +128,4 @@ def forward_dynamics(
     inf/nan)."""
     M, h = _mass_and_bias(model, q, v, external_wrenches)
     rhs = (tau_applied - h).T[..., None]  # (N, nv, 1)
-    a = torch.linalg.solve_ex(M.permute(2, 0, 1), rhs, check_errors=False)
-    return a.result[..., 0].T
+    return linalg.solve(M.permute(2, 0, 1), rhs)[..., 0].T

@@ -9,6 +9,11 @@ not write to them.
 A tensor made while a ``torch.func`` transform (jvp, vjp) is active comes
 wrapped for that transform's level and must not outlive it; the cache keeps
 the plain tensor underneath.
+
+``misses`` counts the tensors made.  A miss while a CUDA graph is being
+captured would be a pageable host-to-device copy, which a capture cannot
+hold: it raises with the key (``utils/graphs.py`` warms every region up
+before it captures it).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 _CACHE: dict = {}
+misses = 0  # tensors made since import
 
 
 def const(array_like, device, dtype=None):
@@ -25,6 +31,13 @@ def const(array_like, device, dtype=None):
     key = (a.dtype.str, a.shape, a.tobytes(), str(device), dtype)
     t = _CACHE.get(key)
     if t is None:
+        global misses
+        if (torch.device(device).type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                "constant-cache miss inside a CUDA graph capture: "
+                f"{a.dtype} {a.shape} {a.tolist()} on {device}")
+        misses += 1
         t = torch.as_tensor(a, dtype=dtype, device=device)
         while torch._C._functorch.is_functorch_wrapped_tensor(t):
             t = torch._C._functorch.get_unwrapped(t)

@@ -13,6 +13,9 @@ the host clock around the call and a ``torch.cuda.synchronize()``, after
 one warm-up call.  Then one iteration is traced with ``torch.profiler`` to
 give the device's busy share, the kernels that take the most time, and
 the host's counts of kernel launches, stream synchronizations and copies.
+The phases run eagerly; the whole iteration, the replan and the simulator
+replay their captured CUDA graphs (``utils/graphs.py``; the warm-up call
+captures them), so their host counts are graph launches and copies.
 
 The hopper's rows (its YAML settings but for cyclic reduction, float64,
 equality constraints on: R = 121 right-hand sides in the Schur solve) add

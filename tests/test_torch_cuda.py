@@ -628,3 +628,92 @@ def test_bench_on_card_matches_golden(cuda):
         assert result["newton_share_batch2"] == 1.0
         assert result["peak_gib_batch2"] > 0
         assert _rel(last_q[2].cpu(), ref["q2"]) < tol
+
+
+def _graph_route(name, what, B, device):
+    """A callable of the main path on the card (a 2-iteration solve with
+    the YAML's solver or with cyclic reduction, a replan after a
+    1-iteration initialization, or a simulated segment of five substeps)
+    at the example's YAML size, B scenarios or robots."""
+    from idto_tpu_torch.mpc import controller as mpc
+    from idto_tpu_torch.mpc.simulator import simulate_segment
+    from idto_tpu_torch.utils import graphs
+
+    model, cfg, prob, params, q_guess = load_example(name, device=device)
+    dq = torch.as_tensor(
+        0.01 * np.random.default_rng(B).standard_normal((B, model.nq)),
+        device=device)
+    probs = broadcast_problem(prob, B)
+    probs = probs.replace(q_init=probs.q_init + dq)
+    qg = q_guess[None] + dq[:, None]
+    if what in ("solve", "solve_cr"):
+        p2 = params.replace(max_iterations=2)
+        if what == "solve_cr":
+            p2 = p2.replace(linear_solver=LinearSolverType.CYCLIC_REDUCTION)
+        return lambda: solve_batch(model, probs, p2, qg)
+    with graphs.eager():
+        carry, _ = mpc.mpc_initialize(model, probs, params.replace(
+            max_iterations=1), qg)
+    x0 = torch.cat([probs.q_init, probs.v_init.expand(B, -1)], dim=1)
+    t = torch.full((), 0.016, dtype=qg.dtype, device=device)
+    if what == "replan":
+        rel = np.asarray(cfg.q_nom_relative_to_q_init
+                         if cfg.q_nom_relative_to_q_init is not None
+                         else [0.0] * model.nq, dtype=np.float64)
+        mp = mpc.make_mpc_params(params, 1)
+        return lambda: mpc.mpc_step(model, probs, mp, rel, carry, x0, t)
+    Kp = torch.as_tensor(np.asarray(cfg.Kp, dtype=np.float64), device=device)
+    Kd = torch.as_tensor(np.asarray(cfg.Kd, dtype=np.float64), device=device)
+    q, v = x0[:, :model.nq], x0[:, model.nq:]
+    return lambda: simulate_segment(model, params.contact, cfg.sim_time_step,
+                                    5, carry.stored, Kp, Kd, q, v, t,
+                                    cfg.feed_forward)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["solve", "solve_cr", "replan", "segment"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("name", ["pendulum", "spinner", "mini_cheetah"])
+def test_captured_route_equals_eager_on_card(cuda, name, B, what):
+    """The replayed graphs against the same calls made eagerly: every
+    tensor of the result within 1e-12 relative (bitwise expected: a replay
+    runs the captured kernels on inputs of the same layout), at the first
+    call (capture) and at a second (replay)."""
+    from idto_tpu_torch.utils import graphs
+
+    graphs.reset()
+    run = _graph_route(name, what, B, cuda)
+    with graphs.eager():
+        want = run()
+    first = run()
+    second = run()
+    assert graphs.captures > 0 and graphs.replays > graphs.captures
+    for got in (first, second):
+        lg, lw = [], []
+        graphs._flatten(got, lg)
+        graphs._flatten(want, lw)
+        assert len(lg) == len(lw)
+        for x, y in zip(lg, lw):
+            x, y = x.cpu(), y.cpu()
+            fin = torch.isfinite(y)
+            assert torch.equal(torch.isfinite(x), fin)
+            if fin.any() and x.is_floating_point():
+                assert _rel(x[fin], y[fin]) <= 1e-12
+            elif fin.any():
+                assert torch.equal(x, y)
+    graphs.reset()
+
+
+@pytest.mark.cuda
+def test_a_capture_that_meets_a_host_read_raises(cuda):
+    """A region that reads a device value on the host cannot be captured:
+    the call raises with the region's name, and nothing runs eagerly in
+    its place."""
+    from idto_tpu_torch.utils import graphs
+
+    graphs.reset()
+    x = torch.ones(4, dtype=torch.float64, device=cuda)
+    with pytest.raises(RuntimeError, match="host_read"):
+        graphs.run("host_read", lambda a: a * float(a.sum()), (x,))
+    assert not graphs._entries
+    graphs.reset()
