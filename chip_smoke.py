@@ -42,7 +42,12 @@ exits non-zero without the final result line:
                  chained replans (the first 10 against the eager chain,
                  one replan profiled); the velocity-command replan;
                  ``TrajectoryOptimizer.Solve``; a hopper closed-loop
-                 segment.  At CHUNK a captured call is timed as the first
+                 segment; the linesearch solve (Armijo on the cheetah,
+                 backtracking on the constrained hopper, B=1, two
+                 iterations), bitwise, with its host reads: one
+                 synchronization a search chunk but the last a search may
+                 take and one an iteration but the last, no kernel launch.
+                 At CHUNK a captured call is timed as the first
                  call less its capture.  For each row the largest relative
                  difference by field (1e-12 at most), ms a call of both
                  routes, the capture's seconds and both peaks; host calls
@@ -130,13 +135,21 @@ counted through the replays.
                  at its YAML size (B=256, CR, two iterations: 2 launches),
                  ``solve_sharded`` on random SPD systems of T=160 and
                  T=640, and ``solve_trust_region_horizon_sharded`` on the
-                 cheetah at full width over T=159 steps (160 knots); (b)
+                 cheetah at full width over T=159 steps (160 knots); then
+                 the same horizon loop captured against eager, bitwise:
+                 through an explicit split of one rank (its regions hold
+                 the NCCL collectives; against the single-process solve)
+                 and through the entry point (a launch an iteration
+                 through replays, equal to the profiler's cr_solve
+                 records); (b)
                  gloo at world size 2, both ranks on the one card with CUDA
                  tensors (NCCL refuses two ranks on one GPU): the
                  scenario-sharded batch (128 a rank, 2 launches a rank),
                  ``solve_sharded`` at T=160 and T=640 and the
                  horizon-sharded cheetah (80 knots a rank, distributed
-                 cyclic reduction: no launch).  Each against the same call
+                 cyclic reduction: no launch; gloo cannot be captured, so
+                 its regions run directly, and the phase reports so).
+                 Each against the same call
                  made single-process on the card; informational times: a
                  per-rank iteration at world size 1 and 2, the horizon
                  solve's and the horizon-sharded iteration's time in
@@ -389,6 +402,10 @@ GRAPHS_CR_BATCH = 256
 GRAPHS_REPLANS = 30
 GRAPHS_EAGER_REPLANS = 10
 GRAPHS_RTOL = 1e-12
+# The graphs phase's linesearch rows (B=1, YAML size, float64): each
+# bitwise against the eager route.
+LS_CASES = (("mini_cheetah", "armijo"), ("hopper", "backtracking"))
+LS_ITERS = 2
 GRAPHS_MAX_HOST_CALLS = 100
 
 # Peak rates of one H100 SXM (NVIDIA H100 data sheet): HBM3 bandwidth;
@@ -1581,11 +1598,29 @@ def phase_options(seed):
             linear_solver=LinearSolverType.DENSE_LDLT)),
         ("e", "exact_hessian spinner", "spinner", dict(exact_hessian=True)),
     )
+    from idto_tpu_torch.api import TrajectoryOptimizer
+    from idto_tpu_torch.utils import graphs
+
     for part, tag, name, more in cases:
         model, _, prob, params, qg = options_inputs(name, "cuda", **more)
         cr_kernel.launches = 0
+        # The first call captures the regions (the linesearch's through
+        # TrajectoryOptimizer.Solve); the second, through solver.solve,
+        # replays them.  The time is the second's.
+        n, capture_s = graphs.captures, sum(graphs.capture_seconds.values())
+        first_call = TrajectoryOptimizer(model, prob, params).Solve \
+            if part == "d" else (lambda q: solver.solve(model, prob, params,
+                                                          q)[:2])
+        _, first_ms = timed(lambda: first_call(qg[0]))
+        captured = graphs.captures - n
+        capture_s = sum(graphs.capture_seconds.values()) - capture_s
         (sol, stats, _), ms = timed(lambda: solver.solve(
             model, prob, params, qg[0]))
+        if graphs.captures != n + captured or not captured:
+            raise AssertionError(f"options: {tag}: {captured} graphs "
+                                 "captured by the first call, "
+                                 f"{graphs.captures - n - captured} by the "
+                                 "second")
         if cr_kernel.launches:
             raise AssertionError(f"options: {tag} launched the kernel")
         m_c, _, p_c, pr_c, qg_c = options_inputs(name, "cpu", **more)
@@ -1594,9 +1629,12 @@ def phase_options(seed):
                 "cost": rel_err(stats.cost.cpu(), stats_c.cost)}
         key = tag.split()[0]
         times[f"{key}_iteration_ms"] = ms / params.max_iterations
+        times[f"{key}_first_call_ms"] = first_ms
         log("options", f"({part}) "
                        f"{tag} B=1 float64: {params.max_iterations} "
-                       f"iterations in {ms:.0f} ms, launches 0, cost "
+                       f"iterations in {ms:.0f} ms replayed (the first "
+                       f"call {first_ms:.0f} ms, {captured} graphs captured "
+                       f"in {capture_s:.2f} s), launches 0, cost "
                        + " -> ".join(f"{c:.6e}" for c in
                                      stats.cost.tolist()) + "; card vs CPU "
                        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
@@ -2093,6 +2131,7 @@ def parallel_rank(rank, world, rendezvous, directory, seed):
         solve_batch,
         solve_batch_sharded,
     )
+    from idto_tpu_torch.utils import graphs
 
     multihost.initialize(rendezvous, world, rank, device="cuda",
                          backend="gloo")
@@ -2139,10 +2178,15 @@ def parallel_rank(rank, world, rendezvous, directory, seed):
 
     model, prob, params, qg = long_cheetah_inputs("cuda", PARALLEL_ITERS)
     cr_kernel.launches = 0
+    graphs.direct_runs.clear()
+    captures = graphs.captures
     sol, stats, _ = horizon.solve_trust_region_horizon_sharded(
         model, prob, params, qg, hmesh)
     torch.cuda.synchronize()
     out["horizon_launches"] = cr_kernel.launches
+    # gloo cannot be captured: the loop's regions ran directly.
+    out["horizon_direct_runs"] = dict(graphs.direct_runs)
+    out["horizon_captures"] = graphs.captures - captures
     out.update(horizon_q=sol.q.cpu(), horizon_cost=stats.cost.cpu())
     one = params.replace(max_iterations=1)
     spent, restore = timed_collectives()
@@ -2156,6 +2200,64 @@ def parallel_rank(rank, world, rendezvous, directory, seed):
                horizon_collectives=spent[1])
     torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
+
+
+def horizon_captured_rows(model, prob, params, q_guess, mesh, ref):
+    """(a)'s horizon loop, captured against eager on the NCCL group of one
+    (``graphs_row``, bitwise): through an explicit ``HorizonSplit`` (its
+    regions hold the collectives: distributed cyclic reduction, no kernel
+    launch), against the single-process solves ``ref`` at
+    HORIZON_CHEETAH_RTOL; and through ``solve_trust_region_horizon_sharded``
+    (no split on an axis of one: a launch an iteration, the profiler's
+    cr_solve records equal to the wrapper's replay count in the profiled
+    call).  Returns both rows."""
+    from idto_tpu_torch.optimizer.batched import solve_trust_region_batched
+    from idto_tpu_torch.parallel import horizon, multihost
+    from idto_tpu_torch.parallel.batching import broadcast_problem
+    from idto_tpu_torch.utils import graphs
+
+    split = horizon.HorizonSplit(multihost.axis_group(mesh, "horizon"),
+                                 prob.num_steps)
+    probs = broadcast_problem(prob, 1)
+    rows = {}
+    q = {}
+
+    def sharded():
+        out = solve_trust_region_batched(model, probs, params, q_guess[None],
+                                         horizon=split)
+        q["split"] = out[0].q[0]
+        if graphs.direct_runs:
+            raise AssertionError(f"parallel: NCCL regions ran directly: "
+                                 f"{graphs.direct_runs}")
+        return out
+
+    tag = f"(a) the horizon loop T={prob.num_steps}, a split of one rank"
+    rows["split"] = graphs_row(tag, sharded, bitwise=True)
+    e = {k: rel_err(q["split"].cpu(), v) for k, v in ref.items()}
+    rows["split"]["vs_single_process"] = e
+    log("parallel", f"{tag}: captured with its collectives on NCCL, "
+                    f"{rows['split']['kernel_launches']} kernel launches; "
+                    "against the single-process solve: " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in e.items())
+                    + f" (tol {HORIZON_CHEETAH_RTOL:g})")
+    if not max(e.values()) <= HORIZON_CHEETAH_RTOL or \
+            rows["split"]["kernel_launches"]:
+        raise AssertionError("parallel: the captured horizon split "
+                             "disagrees")
+    tag = (f"(a) solve_trust_region_horizon_sharded T={prob.num_steps} at "
+           "world size 1")
+    rows["entry"] = graphs_row(
+        tag, lambda: horizon.solve_trust_region_horizon_sharded(
+            model, prob, params, q_guess, mesh), bitwise=True)
+    calls = rows["entry"]["host_calls"]
+    log("parallel", f"{tag}: {rows['entry']['kernel_launches']} launches "
+                    f"through replays, {calls['device_cr_solve']} device "
+                    "records of cr_solve in the profiled call")
+    if not (rows["entry"]["kernel_launches"]
+            == rows["entry"]["profiled_kernel_launches"]
+            == calls["device_cr_solve"] == PARALLEL_ITERS):
+        raise AssertionError(f"parallel: {tag}: launches {rows['entry']}")
+    return rows
 
 
 def phase_parallel(seed):
@@ -2178,6 +2280,7 @@ def phase_parallel(seed):
         solve_batch,
         solve_batch_sharded,
     )
+    from idto_tpu_torch.utils import graphs
 
     phase_t0 = time.perf_counter()
     launches, numbers = {}, {}
@@ -2282,8 +2385,11 @@ def phase_parallel(seed):
         raise AssertionError("parallel: the world-1 horizon solve missed "
                              "the kernel")
     ref_h = {"fused": fused[0].q.cpu(), "levels": levels[0].q.cpu()}
-    dist.destroy_process_group()
     del hsol, fused, levels
+    numbers["horizon_ws1"] = horizon_captured_rows(
+        lmodel, lprob, lparams, lqg, hmesh, ref_h)
+    graphs.reset()  # the graphs hold the group's collectives
+    dist.destroy_process_group()
     torch.cuda.empty_cache()
 
     # (b) gloo, two ranks on the one card.
@@ -2356,6 +2462,13 @@ def phase_parallel(seed):
         if out["horizon_launches"]:
             raise AssertionError(f"parallel: rank {r}'s horizon-sharded "
                                  "solve launched the fused kernel")
+        log("parallel", f"(b) rank {r}: on gloo the horizon loop's regions "
+                        f"ran directly: {out['horizon_direct_runs']}, "
+                        f"{out['horizon_captures']} graphs captured")
+        if out["horizon_captures"] or not out["horizon_direct_runs"].get(
+                "solve.prepare"):
+            raise AssertionError(f"parallel: rank {r}'s gloo horizon loop "
+                                 "did not run directly")
         if not (max(errs[r].values()) <= PARALLEL_RTOL
                 and max(whole.values()) <= WHOLE_BATCH_RTOL):
             raise AssertionError(f"parallel: rank {r} disagrees")
@@ -2603,7 +2716,8 @@ def host_calls(fn):
     return n
 
 
-def graphs_row(tag, call, timed=True, profiled=True, eager_call=None):
+def graphs_row(tag, call, timed=True, profiled=True, eager_call=None,
+               bitwise=False):
     """``call()`` eagerly (``graphs.eager()``) and through captured graphs
     from none (the first call captures them; then a timed replay and a
     profiled one): the routes' largest relative difference by field, ms
@@ -2615,7 +2729,8 @@ def graphs_row(tag, call, timed=True, profiled=True, eager_call=None):
     Without ``timed`` the captured ms are those of the first call less its
     capture.  ``eager_call`` runs in place of ``call`` on the eager route
     (a shorter chain: the captured results are compared as far as it
-    goes); ``profiled`` may be a call of its own to profile."""
+    goes); ``profiled`` may be a call of its own to profile.  With
+    ``bitwise`` every difference must be 0.0."""
     import torch
 
     from idto_tpu_torch.ops import cr_kernel
@@ -2675,12 +2790,86 @@ def graphs_row(tag, call, timed=True, profiled=True, eager_call=None):
                   f"max rel diff {row['max_rel_diff']:.3e}"
                   + (f" {row['nonzero_diff']}" if row["nonzero_diff"] else "")
                   + (f", host calls {row['host_calls']}" if profiled else ""))
-    if not row["max_rel_diff"] <= GRAPHS_RTOL:
+    if not row["max_rel_diff"] <= (0.0 if bitwise else GRAPHS_RTOL):
         raise AssertionError(f"graphs: {tag}: captured and eager differ by "
                              f"{row['max_rel_diff']:.3e}")
     del want
     graphs.reset()
     torch.cuda.empty_cache()
+    return row
+
+
+def linesearch_row(name, method):
+    """The linesearch solve (``method`` on ``name`` at its YAML size,
+    float64, B=1, LS_ITERS iterations) through ``graphs_row``, bitwise
+    against the eager route.  In the profiled call the regions are logged:
+    the host must make no kernel launch and exactly one synchronization a
+    host read of the loop -- after each search chunk but the last a search
+    may take, and after each iteration but the last.  Returns the row with
+    the host calls an iteration."""
+    import torch
+
+    from idto_tpu_torch.examples.registry import load_example
+    from idto_tpu_torch.optimizer import linesearch
+    from idto_tpu_torch.optimizer.problem import (
+        LinesearchMethod,
+        SolverMethod,
+    )
+    from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+    from idto_tpu_torch.utils import graphs
+
+    model, _, prob, params, q_guess = load_example(
+        name, dtype=torch.float64, device="cuda")
+    p = params.replace(method=SolverMethod.LINESEARCH,
+                       linesearch_method=LinesearchMethod(method),
+                       max_iterations=LS_ITERS)
+    probs = broadcast_problem(prob, 1)
+    seq = []
+
+    def call():
+        return solve_batch(model, probs, p, q_guess[None])
+
+    def logged():
+        inner = graphs.run
+
+        def run(region, *args, **kwargs):
+            seq.append(region)
+            return inner(region, *args, **kwargs)
+
+        seq.clear()
+        graphs.run = run
+        try:
+            return call()
+        finally:
+            graphs.run = inner
+
+    tag = f"{method} {name} B=1 {LS_ITERS} iterations (linesearch)"
+    row = graphs_row(tag, call, profiled=logged, bitwise=True)
+    chunks = -(-p.max_linesearch_iterations // linesearch.SEARCH_CHUNK)
+    reads, run_of_chunks, advances = 0, 0, 0
+    for region in seq:
+        run_of_chunks = run_of_chunks + 1 if region == "ls.search" else 0
+        reads += region == "ls.search" and run_of_chunks != chunks
+        advances += region == "ls.advance"
+        reads += region == "ls.advance" and advances != LS_ITERS
+    calls = row["host_calls"]
+    row.update(search_chunk=linesearch.SEARCH_CHUNK, iterations=advances,
+               search_replays=seq.count("ls.search"), host_reads=reads,
+               host_calls_a_iteration={k: v / advances
+                                       for k, v in calls.items()})
+    log("graphs", f"{tag}: {advances} iterations, "
+                  f"{row['search_replays']} search chunks of "
+                  f"{linesearch.SEARCH_CHUNK} steps; host reads of the loop "
+                  f"{reads}, synchronizations {calls['synchronizations']}, "
+                  f"kernel launches {calls['cudaLaunchKernel']}, graph "
+                  f"launches {calls['cudaGraphLaunch']} (regions "
+                  f"{len(seq)}); an iteration {row['host_calls_a_iteration']}")
+    if calls["cudaLaunchKernel"] or calls["synchronizations"] != reads \
+            or calls["cudaGraphLaunch"] != len(seq) or advances != LS_ITERS:
+        raise AssertionError(f"graphs: {tag}: host calls {calls} for "
+                             f"{len(seq)} regions and {reads} host reads")
+    if row["kernel_launches"]:
+        raise AssertionError(f"graphs: {tag} launched the kernel")
     return row
 
 
@@ -2788,6 +2977,11 @@ def phase_graphs(seed):
         "TrajectoryOptimizer.Solve (cheetah, 3 iterations)",
         lambda: opt.Solve(q_guess), profiled=False)
     del carry0, opt
+
+    # The linesearch solves: Armijo on the cheetah, backtracking on the
+    # constrained hopper.
+    for name, method in LS_CASES:
+        rows[f"linesearch_{method}_{name}"] = linesearch_row(name, method)
 
     # One closed-loop segment of the hopper under its stored plan.
     model, cfg, prob, params, q_guess = load_example("hopper", device="cuda")

@@ -424,21 +424,23 @@ def solve_trust_region_batched(
     ``horizon`` (a ``parallel.horizon.HorizonSplit``) shards the horizon
     over a process group: each rank evaluates the physics of its own steps,
     and cyclic reduction runs distributed.  Every rank then holds the same
-    gathered values and takes the same host decisions.  This loop stays
-    eager: its regions would hold collectives, which a graph captured on
-    one rank cannot replay in step with the others (and gloo, the group of
-    CPU ranks, has no graphs)."""
+    gathered values and takes the same host decisions.  The regions hold
+    the collectives, and the split is part of their keys.  On an NCCL group
+    every rank captures and replays the same regions, as the JAX package
+    partitions its one compiled loop; on a gloo group (CPU ranks, or ranks
+    that share a card) the route follows the backend and the regions run
+    directly on CUDA tensors, since gloo cannot be captured
+    (``graphs.direct_runs`` counts them)."""
     check_supported(model)
     K = params.max_iterations
     if Delta0 is not None and not isinstance(Delta0, torch.Tensor):
         Delta0 = torch.full((), float(Delta0), dtype=q_guesses.dtype,
                             device=q_guesses.device)
+    group = None if horizon is None else horizon.ax.group
 
     def region(name, fn, *args, clone=False):
-        if horizon is not None:
-            return fn(*args)
-        return graphs.run(name, fn, args, model=model, key=(params,),
-                          clone=clone)
+        return graphs.run(name, fn, args, model=model, key=(params, horizon),
+                          clone=clone, group=group)
 
     probs, s = region(
         "solve.start", lambda p, qg, d: (p, _start(params, qg, d)),

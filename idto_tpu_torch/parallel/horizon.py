@@ -38,6 +38,13 @@ linear solves go through the distributed cyclic reduction.  Every host
 decision of the loop then reads values that are bit-identical on all ranks,
 which keeps the ranks in step (a rank that branched differently would
 deadlock the group).
+
+On CUDA tensors over an NCCL group the loop's regions are captured with
+their collectives (``optimizer/batched.py``, ``utils/graphs.py``): every
+collective here reads no device value on the host and allocates its
+buffers with the caching allocator, which a capture owns, and the
+group's communicator comes into being in the eager warm-up before the
+first capture.  Over gloo the regions run directly.
 """
 from __future__ import annotations
 
@@ -232,6 +239,21 @@ class HorizonSplit:
         self.k1 = self.k0 + knots
         self.lo, self.hi = self.k0, min(self.k1, num_steps)
 
+    # A split is part of the keys of the captured regions
+    # (``utils/graphs.py``): two splits are one when they name the same
+    # group object, rank, world size and knot range.  A key holds its split
+    # and so the group, whose id cannot be reused while the key lives.
+    def _identity(self):
+        return (id(self.ax.group), self.ax.index, self.ax.size, self.k0,
+                self.k1, self.T)
+
+    def __eq__(self, other):
+        return (isinstance(other, HorizonSplit)
+                and self._identity() == other._identity())
+
+    def __hash__(self):
+        return hash(self._identity())
+
     def _local(self, model, probs, contact, q):
         """(q_ext, halo, tau, v) of this rank: tau of its steps, v of its
         knots."""
@@ -310,7 +332,9 @@ def solve_trust_region_horizon_sharded(model, prob, params, q_guess, mesh,
 
     Requires (T+1) divisible by the axis size, and for cyclic reduction
     ceil((T+1)/2) super-rows at least as many as the ranks
-    (``factorize_sharded``)."""
+    (``factorize_sharded``).  On CUDA tensors over NCCL the loop's graphs
+    hold the group's collectives: call ``utils.graphs.reset()`` before
+    destroying the group."""
     from idto_tpu_torch.optimizer.batched import solve_trust_region_batched
     from idto_tpu_torch.optimizer.solver import unbatch
     from idto_tpu_torch.parallel.batching import broadcast_problem

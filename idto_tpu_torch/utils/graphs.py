@@ -10,10 +10,13 @@ key into a CUDA graph and replays it afterwards: the same kernels, in the
 same order, on the same numbers; one graph launch replaces their launches.
 
 **The key** is the region's name, the identity of the model object, the
-caller's static values (the ``SolverParameters``, step counts, masks) and
-the structure of the arguments: for each tensor its shape, strides,
-alignment, dtype and device, for every other leaf its type and value.  A
-new model object, a new shape or a changed parameter captures anew.
+caller's static values (the ``SolverParameters``, step counts, masks, and
+for a horizon-sharded solve its split: the process group, this rank's
+place in it, the world size and the rank's knot range) and the structure
+of the arguments: for each tensor its shape, strides, alignment, dtype and
+device, for every other leaf its type and value.  A new model object, a
+new shape, a changed parameter or another split captures anew: a sharded
+and an unsharded solve of the same shapes never share a graph.
 
 **Inputs** are copied into static buffers of the same layout on every
 call (an expanded tensor stays expanded), so the replay sees exactly the
@@ -42,6 +45,21 @@ launches of each counted kernel it holds; each replay adds that number.
 The warm-up's launches go to :data:`warmup_launches`, not to the kernel's
 count, and the capture's own calls of the wrapper launch nothing.
 
+**Collectives** (``group``): a region that makes collectives over a
+process group is captured with them when the group runs NCCL.  Its
+communicator comes into being in the warm-up, on the side stream, before
+the capture.  Every rank of the group must capture and replay the same
+regions in the same order, or one rank's collectives would wait for
+others that never come: before each capture or replay on a group of more
+than one rank, the ranks exchange through the default group's store
+which region they run and how (a host exchange, no device read), and a
+rank that finds another region, or none within :data:`AGREE_SECONDS`,
+raises with the region's name.  A gloo group cannot be captured: on CUDA
+tensors its regions run directly, and :data:`direct_runs` counts them by
+name.  A group cannot be destroyed while a graph that holds its
+collectives lives (NCCL waits for the graph, and
+``destroy_process_group`` hangs on four cards): call :func:`reset` first.
+
 Tensors on the CPU run the region directly (the tests and ``--device
 cpu``), and so does everything inside :func:`eager` (for holding the
 captured route against the eager one).  :func:`stand_in` is for the tests
@@ -53,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import time
 import weakref
 from typing import Any, Callable
@@ -66,12 +85,18 @@ _entries: dict = {}
 _owned: dict = {}  # id(tensor) -> weakref of the static buffers of every entry
 _streams: dict = {}  # device -> the side stream of warm-ups and captures
 _counters: list = []  # (module, attribute) of each counted kernel
+_agreed: dict = {}  # group name -> regions run on the group's captured route
 
 # Seconds and launches spent on first calls since import (or since reset).
 capture_seconds: dict = {}  # region name -> seconds of warm-ups + captures
 warmup_launches = 0
 captures = 0
 replays = 0
+# Region name -> runs on CUDA tensors left direct: their group is gloo.
+direct_runs: dict = {}
+
+# Seconds a rank waits for the others to reach a region of their group.
+AGREE_SECONDS = 300
 
 _ALIGN = 512  # bytes: the caching allocator's block alignment
 
@@ -111,11 +136,13 @@ def stand_in():
 
 def reset() -> None:
     """Drop every captured graph and its buffers (their memory goes back to
-    the allocator once nothing holds their outputs)."""
+    the allocator once nothing holds their outputs).  Call it before
+    destroying a process group whose collectives a graph holds."""
     global warmup_launches, captures, replays
     _entries.clear()
     _owned.clear()
     capture_seconds.clear()
+    direct_runs.clear()
     warmup_launches = captures = replays = 0
 
 
@@ -204,6 +231,46 @@ def _ptr(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
 
+# -- collectives ---------------------------------------------------------------
+
+
+def _agree(group, name: str, how: str) -> None:
+    """Raise unless every rank of ``group`` runs ``name`` the same way
+    (``how``: a capture or a replay) as its next region on the group.  Each
+    rank posts its region to the default group's store under the count of
+    regions run on this group so far, and reads the others' posts; then it
+    deletes its post of the region before, which every rank has read by
+    then (none posts a region before it has read all posts of the last)."""
+    import torch.distributed as dist
+
+    ranks = dist.get_process_group_ranks(group)
+    if len(ranks) < 2:
+        return
+    store = dist.distributed_c10d._get_default_store()
+    gid = group.group_name
+    n = _agreed.get(gid, 0)
+    _agreed[gid] = n + 1
+    prefix = f"idto_graphs/{gid}/{n}/"
+    mine = f"{name} ({how})"
+    me = dist.get_rank()
+    store.set(prefix + str(me), mine)
+    try:
+        store.wait([prefix + str(r) for r in ranks],
+                   datetime.timedelta(seconds=AGREE_SECONDS))
+    except RuntimeError as e:  # the store's timeout
+        raise RuntimeError(
+            f"region {name!r}: rank {me} ran it as its region {n} on the "
+            f"group of ranks {ranks}, and not every rank reached a region "
+            f"{n} within {AGREE_SECONDS} s") from e
+    theirs = {r: store.get(prefix + str(r)).decode() for r in ranks}
+    if n:
+        store.delete_key(f"idto_graphs/{gid}/{n - 1}/{me}")
+    if any(v != mine for v in theirs.values()):
+        raise RuntimeError(
+            f"region {name!r}: the ranks of one group run other regions as "
+            f"their region {n}: {theirs}")
+
+
 # -- the route -----------------------------------------------------------------
 
 
@@ -228,7 +295,7 @@ def _set_counts(values):
 
 
 def run(name: str, fn: Callable, args: tuple, *, model=None, key=(),
-        clone: bool = True):
+        clone: bool = True, group=None):
     """``fn(*args)`` as a captured region: on CUDA tensors, a replay of its
     graph (captured at the first call of this key); on CPU tensors, or
     inside :func:`eager`, a direct call.
@@ -236,7 +303,9 @@ def run(name: str, fn: Callable, args: tuple, *, model=None, key=(),
     ``fn`` may read ``model`` (named in the key by identity) and the
     hashable values in ``key``, and nothing else but ``args``: tensors it
     reads from elsewhere would be read at their capture-time addresses.
-    It must not write its arguments in place."""
+    It must not write its arguments in place.  ``group`` is the process
+    group of the collectives ``fn`` makes (None: it makes none); on CUDA
+    tensors a gloo group's region runs directly."""
     leaves: list = []
     spec = _flatten(args, leaves)
     device = leaves[0].device if leaves else None
@@ -245,8 +314,16 @@ def run(name: str, fn: Callable, args: tuple, *, model=None, key=(),
         return fn(*args)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"region {name!r}: no graphs on {device}")
+    if group is not None and device.type == "cuda":
+        import torch.distributed as dist
+
+        if dist.get_backend(group) != "nccl":  # no graph holds gloo's
+            direct_runs[name] = direct_runs.get(name, 0) + 1
+            return fn(*args)
     full_key = (name, id(model), key, spec, tuple(_meta(t) for t in leaves))
     entry = _entries.get(full_key)
+    if group is not None:
+        _agree(group, name, "replay" if entry else "capture")
     if entry is None:
         entry = _capture(name, fn, spec, leaves, device, model)
         _entries[full_key] = entry
@@ -254,11 +331,16 @@ def run(name: str, fn: Callable, args: tuple, *, model=None, key=(),
 
 
 def _capture(name, fn, spec, leaves, device, model) -> _Entry:
+    """The first call of a key: static input buffers, the warm-up, the
+    capture (or, under the stand-in, the recorded callable)."""
     global warmup_launches, captures
     t0 = time.perf_counter()
     inputs = []
     for t in leaves:
-        if _is_owned(t):  # another region's buffer: read it where it is
+        # Another region's buffer is read where it is, once: a tensor that
+        # fills two slots gets a buffer of its own in the second, which a
+        # later call may fill with another value.
+        if _is_owned(t) and not any(t is b for b in inputs):
             inputs.append(t)
         else:
             inputs.append(_buffer(t))

@@ -31,9 +31,12 @@ rank): all_gather, all_reduce (sum and min, float64 and int32), broadcast,
 and send/recv (gloo only, in a group of its own that a crash or hang
 cannot take the rest down with).  ``--horizon`` times one iteration of the
 horizon-sharded cheetah over ``chip_smoke.PARALLEL_T`` steps (CUDA events,
-after a warm one; once more with each collective synchronized and timed) at
-world size 1 and ``--world``, and holds two iterations against the same
-solve made unsharded on rank 0's card.  The JSON goes to ``--out``; the
+after a warm one), replayed from captured graphs (on NCCL; gloo's regions
+run directly) and eagerly, in turns (captured, eager, eager, captured);
+once more eagerly with each collective synchronized and timed; at world
+size 1 and ``--world``; and holds two captured iterations against the
+eager ones (their largest difference) and against the same solve made
+unsharded on rank 0's card.  The JSON goes to ``--out``; the
 script commits no artifact.
 """
 from __future__ import annotations
@@ -182,6 +185,8 @@ def _horizon_rank(rank, world, rendezvous, directory, backend, iters):
     )
     from idto_tpu_torch.utils import timing
 
+    from idto_tpu_torch.utils import graphs
+
     multihost.initialize(rendezvous, world, rank, device="cuda",
                          backend=backend)
     mesh = make_mesh(axis="horizon", device="cuda")
@@ -191,22 +196,42 @@ def _horizon_rank(rank, world, rendezvous, directory, backend, iters):
         return solve_trust_region_horizon_sharded(model, prob, params, qg,
                                                   mesh)
 
-    seconds = timing.time_fn(iteration, [()], reps=iters, device="cuda")
+    def eager_iteration():
+        with graphs.eager():
+            return iteration()
+
+    # The captured route (the warm-up call captures) and the eager one in
+    # turns: captured, eager, eager, captured.
+    seconds, eager_seconds = [], []
+    for route in ("captured", "eager", "eager", "captured"):
+        fn = iteration if route == "captured" else eager_iteration
+        (seconds if route == "captured" else eager_seconds).append(
+            timing.time_fn(fn, [()], reps=iters, device="cuda"))
     spent, restore = chip_smoke.timed_collectives()
-    try:
-        synced_ms, _ = chip_smoke.synced_ms(iteration)
+    try:  # the collectives are Python calls on the eager route only
+        synced_ms, _ = chip_smoke.synced_ms(eager_iteration)
     finally:
         restore()
     two = params.replace(max_iterations=2)
-    q = solve_trust_region_horizon_sharded(model, prob, two, qg, mesh)[0].q
+    sol = solve_trust_region_horizon_sharded(model, prob, two, qg, mesh)[0]
+    with graphs.eager():
+        sol_eager = solve_trust_region_horizon_sharded(model, prob, two, qg,
+                                                       mesh)[0]
     result = {"backend": torch.distributed.get_backend(),
               "seconds_per_iteration": seconds,
-              "synced_iteration_ms": synced_ms,
+              "eager_seconds_per_iteration": eager_seconds,
+              "captured_vs_eager_max_abs": max(
+                  float((a - b).abs().max()) for a, b in (
+                      (sol.q, sol_eager.q), (sol.tau, sol_eager.tau))),
+              "graphs_captured": graphs.captures,
+              "regions_run_directly": dict(graphs.direct_runs),
+              "synced_eager_iteration_ms": synced_ms,
               "collective_ms": 1e3 * spent[0], "collectives": spent[1]}
     if rank == 0:  # the same two iterations unsharded on this rank's card
         result["q_vs_single"] = chip_smoke.rel_err(
-            q, solve(model, prob, two, qg)[0].q)
+            sol.q, solve(model, prob, two, qg)[0].q)
     _write(directory, rank, result)
+    graphs.reset()  # the graphs hold the group's collectives
     torch.distributed.destroy_process_group()
 
 

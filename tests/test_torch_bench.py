@@ -270,7 +270,8 @@ def test_linsolve_hybrid_only_past_its_tail():
 
 _ENTRY_POINTS = ("bench_torch.py", "scripts/bench_torch_f32_accept.py",
                  "scripts/bench_torch_linsolve.py",
-                 "scripts/bench_torch_calibrate_timing.py", "chip_smoke.py")
+                 "scripts/bench_torch_calibrate_timing.py",
+                 "scripts/bench_torch_linesearch.py", "chip_smoke.py")
 # Every module of the port, the per-problem pipeline's included.
 _PORT_MODULES = tuple(sorted(
     os.path.relpath(os.path.join(d, f), _REPO)

@@ -5,7 +5,10 @@ cheetah replan chain, the six manipulation examples and the spinner's closed
 loop on the card against the JAX package's golden solves; the capsule pair
 kernels and a simulator step on the card against the CPU; ``solve_sharded``
 on an NCCL group of one; ``bench_torch.run`` at a small size against the
-JAX bench step's golden.  Without a card they skip.
+JAX bench step's golden; the captured route against the eager one (the
+batch-native solve, the replan and the segment; the linesearch solve and
+the horizon-sharded loop on an NCCL group of one, both bitwise).  Without
+a card they skip.
 
 This file imports neither JAX nor ``idto_tpu``, so it also runs where JAX is
 not installed:
@@ -717,3 +720,109 @@ def test_a_capture_that_meets_a_host_read_raises(cuda):
         graphs.run("host_read", lambda a: a * float(a.sum()), (x,))
     assert not graphs._entries
     graphs.reset()
+
+
+def _same_bits(got, want):
+    """Every tensor of two results equal, NaN where NaN: a difference of
+    0.0."""
+    from idto_tpu_torch.utils import graphs
+
+    lg, lw = [], []
+    graphs._flatten(got, lg)
+    graphs._flatten(want, lw)
+    assert len(lg) == len(lw)
+    for x, y in zip(lg, lw):
+        assert torch.equal(torch.nan_to_num(x.cpu(), 7.0),
+                           torch.nan_to_num(y.cpu(), 7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,method", [("mini_cheetah", "armijo"),
+                                         ("hopper", "backtracking")])
+def test_captured_linesearch_equals_eager_on_card(cuda, name, method):
+    """The linesearch solve (two iterations at the example's YAML size, the
+    hopper with its equality constraints) replayed from captured graphs
+    against the same call made eagerly: a difference of 0.0 in every
+    tensor, at the first call (capture) and at a second (replay); no
+    cyclic-reduction launch (the linesearch solves by Thomas)."""
+    from idto_tpu_torch.optimizer.problem import (
+        LinesearchMethod,
+        SolverMethod,
+    )
+    from idto_tpu_torch.utils import graphs
+
+    graphs.reset()
+    model, _, prob, params, q_guess = load_example(name, device=cuda)
+    p = params.replace(method=SolverMethod.LINESEARCH,
+                       linesearch_method=LinesearchMethod(method),
+                       max_iterations=2)
+    probs = broadcast_problem(prob, 1)
+
+    def run():
+        return solve_batch(model, probs, p, q_guess[None])
+
+    with graphs.eager():
+        want = run()
+    cr_kernel.launches = 0
+    for _ in range(2):
+        _same_bits(run(), want)
+    names = {e.name for e in graphs._entries.values()}
+    assert {"ls.prepare", "ls.search", "ls.advance"} <= names
+    assert graphs.replays > graphs.captures and cr_kernel.launches == 0
+    graphs.reset()
+
+
+@pytest.mark.cuda
+def test_captured_horizon_loop_world_one_on_nccl(cuda):
+    """The horizon-sharded trust region on an NCCL group of one, the
+    cheetah at T=15 with cyclic reduction, two iterations: through an
+    explicit split its regions hold the collectives (distributed cyclic
+    reduction, no kernel launch), and the replays equal the eager loop
+    with a difference of 0.0; through ``solve_trust_region_horizon_sharded``
+    (no split on an axis of one) the replays launch the kernel once an
+    iteration."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from idto_tpu_torch.examples import config
+    from idto_tpu_torch.optimizer.batched import solve_trust_region_batched
+    from idto_tpu_torch.parallel import horizon, multihost
+    from idto_tpu_torch.parallel.batching import make_mesh
+    from idto_tpu_torch.utils import graphs
+
+    model, cfg, _, params, _ = load_example("mini_cheetah", device=cuda)
+    cfg = dataclasses.replace(cfg, num_steps=15)
+    prob = config.build_problem(cfg, model, dtype=torch.float64, device=cuda)
+    qg = config.build_initial_guess(cfg, dtype=torch.float64, device=cuda)
+    params = params.replace(linear_solver=LinearSolverType.CYCLIC_REDUCTION,
+                            check_convergence=False, max_iterations=2)
+    graphs.reset()
+    mesh = make_mesh(axis="horizon", device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        split = horizon.HorizonSplit(multihost.axis_group(mesh, "horizon"),
+                                     prob.num_steps)
+
+        def sharded():
+            return solve_trust_region_batched(
+                model, broadcast_problem(prob, 1), params, qg[None],
+                horizon=split)
+
+        with graphs.eager():
+            want = sharded()
+        cr_kernel.launches = 0
+        for _ in range(2):
+            _same_bits(sharded(), want)
+        assert cr_kernel.launches == 0 and not graphs.direct_runs
+        assert graphs.replays > graphs.captures > 0
+        got = horizon.solve_trust_region_horizon_sharded(model, prob, params,
+                                                         qg, mesh)
+        cr_kernel.launches = 0
+        again = horizon.solve_trust_region_horizon_sharded(model, prob,
+                                                           params, qg, mesh)
+        assert cr_kernel.launches == 2
+        _same_bits(again, got)
+    finally:
+        graphs.reset()  # the graphs hold the group's collectives
+        dist.destroy_process_group()

@@ -18,6 +18,11 @@ parameter captures anew; ``ResetInitialConditions`` reaches the replay.
 
 (c) Launch accounting: the launches a capture records are added at each
 replay, and the warm-up's go to ``graphs.warmup_launches``.
+
+(d) Keys and entry points: a sharded and an unsharded solve of the same
+shapes capture apart (the horizon split is in the key), a tensor passed in
+two slots gets a buffer each, and the linesearch's entry points share its
+regions.
 """
 import contextlib
 import io
@@ -409,3 +414,87 @@ def test_the_solve_copies_its_problem_once_a_call(stand_in):
     state = entry["solve.prepare"].inputs[n_probs:]
     after = entry["solve.advance"].inputs[n_probs:n_probs + len(state)]
     assert all(a is b for a, b in zip(after, state))
+
+
+def test_a_tensor_in_two_slots_gets_a_buffer_each(stand_in):
+    """A region's output passed in two argument slots is adopted in the
+    first; the second gets a buffer of its own, so that a later call may
+    pass two different values there."""
+    x = torch.arange(3, dtype=torch.float64)
+    y = graphs.run("twice", lambda a: a * 2.0, (x,), clone=False)
+
+    def diff(a, b):
+        return a - b
+
+    assert torch.equal(graphs.run("diff", diff, (y, y)), torch.zeros(3))
+    entry = next(e for e in graphs._entries.values() if e.name == "diff")
+    assert entry.inputs[0] is y and entry.inputs[1] is not y
+    z = y + 1.0
+    assert torch.equal(graphs.run("diff", diff, (z, y)), torch.ones(3))
+
+
+def test_a_sharded_and_an_unsharded_solve_capture_apart(stand_in):
+    """The horizon split is part of the keys: the pendulum sharded over a
+    group of one and unsharded, at the same shapes and parameters, capture
+    under different keys; a new split of the same group, rank and knots
+    replays the first one's graphs.  The sharded regions read nothing on
+    the host."""
+    import torch.distributed as dist
+
+    from idto_tpu_torch.parallel.horizon import HorizonSplit
+    from idto_tpu_torch.parallel.multihost import AxisGroup
+
+    model, _, prob, probs, params, qg = _small(
+        "pendulum", 3, 1, max_iterations=1, linear_solver=CR)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        ax = AxisGroup(dist.group.WORLD, 1, 0)
+
+        def captures_of(horizon):
+            n = graphs.captures
+            batched.solve_trust_region_batched(model, probs, params, qg,
+                                               horizon=horizon)
+            return graphs.captures - n
+
+        assert captures_of(HorizonSplit(ax, prob.num_steps)) == 4
+        assert captures_of(None) == 4
+        assert captures_of(HorizonSplit(ax, prob.num_steps)) == 0
+        assert captures_of(None) == 0
+        splits = {k[2][1] for k in graphs._entries}
+        assert len(splits) == 2 and None in splits
+        # The sharded regions, collectives and all, read nothing on the
+        # host.
+        ran, _ = _strict_rerun(lambda: batched.solve_trust_region_batched(
+            model, probs, params, qg,
+            horizon=HorizonSplit(ax, prob.num_steps)))
+        assert {"solve.prepare", "solve.advance"} <= ran
+    finally:
+        dist.destroy_process_group()
+
+
+def test_linesearch_entry_points_share_the_captured_regions(stand_in):
+    """``TrajectoryOptimizer.Solve`` with ``method: linesearch`` captures
+    the linesearch's regions in its first call; ``solver.solve`` and
+    ``solve_batch`` of the same problem replay them, capturing nothing;
+    ``SolveFromWarmStart`` resumes the trust region, as in the JAX
+    package, on regions of its own."""
+    from idto_tpu_torch.api import WarmStart
+    from idto_tpu_torch.optimizer import solver
+    from idto_tpu_torch.optimizer.problem import SolverMethod
+
+    model, _, prob, probs, params, qg = _small(
+        "pendulum", 6, 1, max_iterations=2, method=SolverMethod.LINESEARCH)
+    opt = TrajectoryOptimizer(model, prob, params)
+    sol, _ = opt.Solve(qg[0])
+    names = {e.name for e in graphs._entries.values()}
+    assert names == {"ls.start", "ls.prepare", "ls.search", "ls.advance",
+                     "ls.finish"}
+    n = graphs.captures
+    again = solver.solve(model, prob, params, qg[0])[0]
+    batch = solve_batch(model, probs, params, qg)[0]
+    assert graphs.captures == n
+    assert torch.equal(again.q, sol.q) and torch.equal(batch.q[0], sol.q)
+    opt.SolveFromWarmStart(WarmStart(sol.q, params.Delta0))
+    names = {e.name for e in graphs._entries.values()}
+    assert {"solve.start", "solve.prepare", "solve.advance"} <= names

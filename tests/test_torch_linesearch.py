@@ -10,18 +10,27 @@ packages' rounding differences.  The statistics keep the JAX package's
 conventions: rho, delta and h_norm NaN, dqH_norm equal to dq_norm, ls_iters
 counting the evaluation at alpha = 1, the flag LINESEARCH_MAX_ITERS when a
 search uses up its iterations.
+
+The captured route (``utils/graphs.py``) runs on the CPU through the
+stand-in of its graphs: Armijo on the cheetah, backtracking on the
+constrained hopper and a search that runs out, each bitwise against the
+direct route, with no host read inside a region and one flag read between
+regions a search chunk and an iteration (none after the last of either).
 """
 import os
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from idto_tpu_torch.examples.registry import load_example
-from idto_tpu_torch.optimizer import solver
+from idto_tpu_torch.optimizer import linesearch, solver
 from idto_tpu_torch.optimizer.problem import LinesearchMethod, SolverMethod
 from idto_tpu_torch.optimizer.solver import SolverFlag
 from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
+from idto_tpu_torch.utils import graphs
+from tests.test_torch_graphs import _HOST_READS, _assert_same, _strict_rerun
 
 # One intra-op thread: these tensors are tiny, and several test workers with
 # a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
@@ -101,3 +110,127 @@ def test_a_batch_searches_each_scenario_on_its_own(method):
         assert _rel(sol.q[b], one.q) < 1e-12
         assert torch.equal(stats.ls_iters[b], st1.ls_iters)
         assert _rel(stats.alpha[b], st1.alpha) < 1e-12
+
+
+# -- the captured route (``utils/graphs.py``) through the CPU stand-in -------
+
+# case: (example, linesearch method, T, iterations, more parameters)
+_CAPTURED = {
+    "armijo_cheetah": ("mini_cheetah", "armijo", 8, 2, {}),
+    "backtracking_hopper": ("hopper", "backtracking", 5, 2, {}),
+    # The first search needs more steps than it may take: the solve stops
+    # with LINESEARCH_MAX_ITERS after one iteration, two chunks into it.
+    "search_runs_out": ("hopper", "backtracking", 5, 3,
+                        {"max_linesearch_iterations": 6}),
+}
+_LS_REGIONS = {"ls.start", "ls.prepare", "ls.search", "ls.advance",
+               "ls.finish"}
+
+
+@pytest.fixture
+def stand_in():
+    graphs.reset()
+    with graphs.stand_in():
+        yield
+    graphs.reset()
+
+
+class _CountHostReads(TorchDispatchMode):
+    """Appends "read" to ``log`` at each op that reads a device value on
+    the host."""
+
+    def __init__(self, log):
+        super().__init__()
+        self.log = log
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in _HOST_READS:
+            self.log.append("read")
+        return func(*args, **(kwargs or {}))
+
+
+def _captured_case(case):
+    """(run, iterations, chunks) of a case: the example at T steps, two
+    scenarios, the second's start moved by 0.01 N(0, 1)."""
+    name, method, T, iters, more = _CAPTURED[case]
+    model, _, prob, params, q_guess = load_example(name, device="cpu")
+    prob = prob.replace(num_steps=T, q_nom=prob.q_nom[: T + 1],
+                        v_nom=prob.v_nom[: T + 1])
+    dq = torch.as_tensor(np.stack([np.zeros(model.nq), 0.01 * np.random.
+                                   default_rng(0).standard_normal(model.nq)]))
+    probs = broadcast_problem(prob, 2)
+    probs = probs.replace(q_init=probs.q_init + dq)
+    p = params.replace(method=SolverMethod.LINESEARCH,
+                       linesearch_method=LinesearchMethod(method),
+                       max_iterations=iters, **more)
+    qg = q_guess[None, : T + 1] + dq[:, None]
+    chunks = -(-p.max_linesearch_iterations // linesearch.SEARCH_CHUNK)
+    return (lambda: solve_batch(model, probs, p, qg)), iters, chunks
+
+
+def _reads_after_each_region(run, monkeypatch):
+    """``run()`` with the host reads made between regions logged: (its
+    result, a list of (region name, host reads before the next region))."""
+    log = []
+    inner = graphs.run
+
+    def logged(name, *args, **kwargs):
+        log.append(name)
+        return inner(name, *args, **kwargs)
+
+    monkeypatch.setattr(graphs, "run", logged)
+    try:
+        with _CountHostReads(log):
+            out = run()
+    finally:
+        monkeypatch.setattr(graphs, "run", inner)
+    seq = []
+    for item in log:
+        if item == "read":
+            seq[-1][1] += 1
+        else:
+            seq.append([item, 0])
+    return out, seq
+
+
+@pytest.mark.parametrize("case", sorted(_CAPTURED))
+def test_captured_linesearch_is_the_direct_solve(stand_in, case,
+                                                 monkeypatch):
+    """The linesearch through the stand-in of its graphs equals the direct
+    solve bitwise; its regions read nothing on the host (``_strict_rerun``);
+    between them the host reads one flag after each search chunk but the
+    last a search may take, and one after each iteration but the last."""
+    run, iters, chunks = _captured_case(case)
+    ran, (got, seq) = _strict_rerun(
+        lambda: _reads_after_each_region(run, monkeypatch))
+    assert ran == _LS_REGIONS
+    with graphs.eager():
+        want = run()
+    _assert_same(got, want)
+    stats = got[1]
+    if case == "search_runs_out":
+        assert stats.num_iters.tolist() == [1, 1]
+        assert stats.solver_flag.tolist() == [
+            int(SolverFlag.LINESEARCH_MAX_ITERS)] * 2
+    else:
+        assert stats.num_iters.tolist() == [iters, iters]
+
+    # The reads the second run made between regions (each region ran under
+    # the strict mode, which fails on a read).
+    assert [name for name, _ in seq[:2]] == ["ls.start", "ls.prepare"]
+    assert seq[-1] == ["ls.finish", 0]
+    advances, run_of_chunks = 0, 0
+    for name, reads in seq:
+        if name == "ls.search":
+            run_of_chunks += 1
+            assert reads == (0 if run_of_chunks == chunks else 1)
+        else:
+            run_of_chunks = 0
+        if name == "ls.advance":
+            advances += 1
+            assert reads == (0 if advances == iters else 1)
+        if name not in ("ls.search", "ls.advance"):
+            assert reads == 0, name
+    assert advances == int(stats.num_iters.max())
+    # Some search took two chunks or more.
+    assert sum(name == "ls.search" for name, _ in seq) > advances

@@ -10,7 +10,11 @@ tests assert on those.  Meshes of the four ranks give every axis size:
 a scenario axis of 4 / sp.  This file imports no JAX, so the ranks do not
 either.  The horizon-sharded pendulum runs ten iterations (JAX's own test
 runs 25): a port iteration costs ~0.2 s of one CPU thread, most of it
-``torch.func`` overhead, and the file keeps to ~30 s.
+``torch.func`` overhead, and the file keeps to ~35 s.  The same run takes
+the horizon-sharded pendulum through the CPU stand-in of its captured
+regions (``utils/graphs.py``; collectives inside) at P=2 and P=4, bitwise
+against the direct route, and has one rank drop its graphs so that the
+two ranks of a group disagree on a region: both must raise.
 
 Tolerances: the random SPD systems 1e-9 relative against JAX's
 ``solve_sharded`` on a mesh of the same size, as tests/test_horizon.py holds
@@ -249,6 +253,45 @@ def _checks(rank):
         out[f"pendulum_P{P}_vs_port"] = max(
             _rel(sol.q, un_sol.q), _rel(stats.cost, un_stats.cost))
 
+    # The same solves through the stand-in of their captured regions
+    # (``utils/graphs.py``): a first call captures, a second replays; each
+    # equals the direct route bitwise.  Then a rank that dropped its graphs
+    # captures where its partner replays: both raise, naming the region.
+    from idto_tpu_torch.utils import graphs
+
+    def same(a, b):
+        la, lb = [], []
+        graphs._flatten(a, la)
+        graphs._flatten(b, lb)
+        return len(la) == len(lb) and all(
+            torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0))
+            for x, y in zip(la, lb))
+
+    for P in (2, 4):
+        if P == 2 and rank >= 2:
+            continue  # ranks 2 and 3 solved the cheetah on their group
+        graphs.reset()
+        with graphs.stand_in():
+            got = [horizon.solve_trust_region_horizon_sharded(
+                *pendulum, meshes[P])[:2] for _ in range(2)]
+        out[f"pendulum_P{P}_stand_in"] = (
+            [same(g, results[P]) for g in got], graphs.captures,
+            graphs.replays)
+    if rank < 2:
+        one = pendulum[:2] + (pendulum[2].replace(max_iterations=1),
+                              pendulum[3])
+        graphs.reset()
+        with graphs.stand_in():
+            horizon.solve_trust_region_horizon_sharded(*one, meshes[2])
+            if rank == 1:
+                graphs.reset()
+            try:
+                horizon.solve_trust_region_horizon_sharded(*one, meshes[2])
+                out["disagreement"] = None
+            except RuntimeError as e:
+                out["disagreement"] = str(e)
+    graphs.reset()
+
     # One knot a rank: the last rank owns knot T alone and evaluates no step
     # (Thomas: two super-rows are too few for four ranks' cyclic reduction).
     model, _, params, _ = pendulum
@@ -365,6 +408,32 @@ def test_horizon_sharded_pendulum_matches_jax(ranks, P):
         iters, jax_iters = out[f"pendulum_P{P}_iters"]
         assert iters == jax_iters == PENDULUM_ITERS
         assert out[f"pendulum_P{P}_vs_port"] <= SELF_RTOL
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_horizon_sharded_pendulum_through_the_stand_in(ranks, P):
+    """The horizon-sharded pendulum through the CPU stand-in of its captured
+    regions, collectives inside: the first call (captures) and the second
+    (replays only) equal the direct route bitwise on every rank of the
+    group; the split is in the keys, so no region is captured twice."""
+    for out in ranks[:P]:
+        same, captures, replays = out[f"pendulum_P{P}_stand_in"]
+        assert same == [True, True]
+        # start, the iteration's two halves, finish; one replay each call
+        # of a region after its capture
+        assert captures == 4
+        assert replays == 2 * (2 + 2 * PENDULUM_ITERS)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_ranks_whose_regions_disagree_raise(ranks, rank):
+    """Rank 1 dropped its graphs: it captures the start where rank 0
+    replays it, and both raise with the region's name instead of pairing
+    their collectives wrongly."""
+    msg = ranks[rank]["disagreement"]
+    assert msg is not None
+    assert "'solve.start'" in msg
+    assert "solve.start (capture)" in msg and "solve.start (replay)" in msg
 
 
 @pytest.mark.parametrize("P", [2, 4])
