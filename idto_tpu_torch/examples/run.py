@@ -50,7 +50,8 @@ def main(argv=None):
                         help="print per-iteration Hessian condition "
                              "numbers")
     parser.add_argument("--profile", action="store_true",
-                        help="print the host profiler table")
+                        help="print the span table: host-clock and device "
+                             "time of each span")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where the tensors live (default: the GPU)")
     parser.add_argument("--live", default=None, type=int, nargs="?",
@@ -123,7 +124,10 @@ def main(argv=None):
         return 0
 
     from idto_tpu_torch.optimizer.solver import solve
+    from idto_tpu_torch.utils import profiler
     from idto_tpu_torch.utils.profiler import instrument
+
+    profiler.set_enabled(args.profile)
 
     want_csv = args.stats_csv or (cfg.save_solver_stats_csv and not args.test)
 
@@ -242,9 +246,8 @@ def main(argv=None):
                               title=f"{args.example} ({tag})")
             print(f"playback written to {out}")
     if args.profile:
-        from idto_tpu_torch.utils.profiler import table_of_averages
-
-        print(table_of_averages())
+        print(profiler.table_of_averages(args.device))
+        profiler.set_enabled(False)
     return 0
 
 

@@ -51,6 +51,7 @@ from idto_tpu_torch.optimizer.problem import (
 from idto_tpu_torch.optimizer.solver import Solution
 from idto_tpu_torch.utils import graphs
 from idto_tpu_torch.utils.consts import const
+from idto_tpu_torch.utils.profiler import instrument
 from idto_tpu_torch.utils.structs import tensor_dataclass
 
 
@@ -215,16 +216,17 @@ def _replan(model, prob, mpc_params, carry, x0, t_now, nominal, key,
                                 **nominal(prob, carry, q0, extra))
         return prob_now, q_guess, carry.Delta, t_now
 
-    prob_now, q_guess, Delta, t_now = graphs.run(
-        "mpc.replan_start", start, (prob, carry, x0, t_now, extra),
-        model=model, key=key, clone=False)
-    # 3. Re-solve from the warm start with the carried trust radius.
-    sol, _, warm = solve_trust_region_batched(
-        model, prob_now, mpc_params, q_guess, Delta0=Delta
-    )
-    # 4. Store the solution spline.
-    return _store(model, prob.dt, sol, warm.Delta, prob_now.q_nom,
-                  t_now), sol
+    with instrument("mpc.step"):
+        prob_now, q_guess, Delta, t_now = graphs.run(
+            "mpc.replan_start", start, (prob, carry, x0, t_now, extra),
+            model=model, key=key, clone=False)
+        # 3. Re-solve from the warm start with the carried trust radius.
+        sol, _, warm = solve_trust_region_batched(
+            model, prob_now, mpc_params, q_guess, Delta0=Delta
+        )
+        # 4. Store the solution spline.
+        return _store(model, prob.dt, sol, warm.Delta, prob_now.q_nom,
+                      t_now), sol
 
 
 def mpc_step(

@@ -72,13 +72,15 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile ``csrc/cr_solve.cu`` for sm_90a into BUILD_DIR (keyed by the
-    source's hash) and return the library path.  Raises if nvcc fails."""
-    with open(_SOURCE, "rb") as f:
+def build(source: str = _SOURCE) -> str:
+    """Compile a CUDA source of the package (default ``csrc/cr_solve.cu``)
+    for sm_90a into BUILD_DIR (keyed by the source's name and hash) and
+    return the library path.  Raises if nvcc fails."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"libcr_solve_{digest}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(out):
         return out
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -86,7 +88,7 @@ def build() -> str:
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, _SOURCE,
+        "-o", tmp, source,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -57,6 +57,7 @@ from idto_tpu_torch.soa import rollout
 from idto_tpu_torch.soa.kinematics import normalize_quaternions
 from idto_tpu_torch.utils import graphs
 from idto_tpu_torch.utils.consts import index
+from idto_tpu_torch.utils.profiler import instrument
 
 
 def can_solve_batched_native(model: Model, params: SolverParameters) -> bool:
@@ -144,13 +145,18 @@ def _forces(model, probs, params, qs, horizon):
 
 
 def _prepare_batched(model, probs, params, qs, D_prev, horizon=None):
-    if horizon is not None:
-        tau, v, parts, nplus = horizon.physics(model, probs, params, qs)
-    else:
-        tau, v = rollout.generalized_forces(model, probs, params.contact, qs)
-        parts = id_partials_for(model, probs, params, qs)
-        nplus = nplus_stack(model, qs)
-    cost = rollout.cost(model, probs, params.contact, qs, tau=tau, v=v)
+    with instrument("physics.forces"):
+        if horizon is not None:
+            tau, v, parts, nplus = horizon.physics(model, probs, params, qs)
+        else:
+            tau, v = rollout.generalized_forces(model, probs, params.contact,
+                                                qs)
+    if horizon is None:
+        with instrument("physics.partials"):
+            parts = id_partials_for(model, probs, params, qs)
+            nplus = nplus_stack(model, qs)
+    with instrument("physics.cost"):
+        cost = rollout.cost(model, probs, params.contact, qs, tau=tau, v=v)
     return _prepare_from_physics(
         model, probs, params, qs, D_prev, cost, v, tau, parts, nplus,
         horizon=horizon,
@@ -161,13 +167,14 @@ def _merit_at_batched(model, probs, params, q_try, lam, horizon=None):
     """(merit, cost) at q_try with frozen multipliers, whole batch:
     phi = L + h^T lam_k."""
     contact = params.contact
-    tau, v = _forces(model, probs, params, q_try, horizon)
-    cost = rollout.cost(model, probs, contact, q_try, tau=tau, v=v)
-    if lam.shape[-1] > 0:
-        unact = model.unactuated_vdofs
-        h = tau[:, :, index(unact, tau.device)].reshape(tau.shape[0], -1)
-        return cost + _bsum(h * lam), cost
-    return cost, cost
+    with instrument("physics.trial"):
+        tau, v = _forces(model, probs, params, q_try, horizon)
+        cost = rollout.cost(model, probs, contact, q_try, tau=tau, v=v)
+        if lam.shape[-1] > 0:
+            unact = model.unactuated_vdofs
+            h = tau[:, :, index(unact, tau.device)].reshape(tau.shape[0], -1)
+            return cost + _bsum(h * lam), cost
+        return cost, cost
 
 
 def _rescue(prep):
@@ -211,7 +218,8 @@ def _rescue_degraded_solves(params: SolverParameters, prep, n_failed=None,
         return prep  # Thomas is already the primary solver
     if n_failed is None:
         n_failed = (~prep.solve_ok).sum()
-    n = int(n_failed)  # host read: the rescue's branch
+    with instrument("solve.read_failed"):
+        n = int(n_failed)  # host read: the rescue's branch
     if not n:
         return prep
     global rescued
@@ -262,7 +270,8 @@ def _advance(model, probs, params, s, active, prep, horizon):
     K = params.max_iterations
     eta = 0.0  # acceptance threshold
     eps_guard = 10 * torch.finfo(s.q.dtype).eps / probs.dt / probs.dt
-    dq_scaled, dq, boundary_active = _dogleg(prep, s.Delta)
+    with instrument("linalg.dogleg"):
+        dq_scaled, dq, boundary_active = _dogleg(prep, s.Delta)
 
     # ---- trust ratio ----
     q_try = s.q + dq
@@ -370,7 +379,8 @@ def _finish(model, probs, params, s, horizon):
     """(Solution, Stats, WarmStart) of the final state."""
     B, K = s.q.shape[0], params.max_iterations
     device = s.q.device
-    tau, v = _forces(model, probs, params, s.q, horizon)
+    with instrument("physics.forces"):
+        tau, v = _forces(model, probs, params, s.q, horizon)
 
     def fl(f):
         return torch.full((B,), int(f), dtype=torch.int32, device=device)
@@ -467,8 +477,11 @@ def solve_trust_region_batched(
         if params.verbose:
             print_rows(*rows)
         # Host read once an iteration, none after the last.
-        if it + 1 == K or not bool(more):
+        if it + 1 == K:
             break
+        with instrument("solve.read_more"):
+            if not bool(more):
+                break
     sol, stats, warm = region(
         "solve.finish",
         lambda p, st: _finish(model, p, params, st, horizon),

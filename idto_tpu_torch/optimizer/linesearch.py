@@ -52,6 +52,7 @@ from idto_tpu_torch.soa import rollout
 from idto_tpu_torch.soa.kinematics import normalize_quaternions
 from idto_tpu_torch.utils import graphs, linalg
 from idto_tpu_torch.utils.consts import index
+from idto_tpu_torch.utils.profiler import instrument
 
 _C_ARMIJO = 1e-4
 _RHO = 0.8
@@ -87,10 +88,11 @@ def _merit_at(model, prob, params, qs, dq, alpha, mu):
     q_try = qs + _bcast(alpha, qs) * dq
     if params.normalize_quaternions:
         q_try = normalize_quaternions(model, q_try)
-    cost = trajectory.cost(model, prob, contact, q_try)
-    if _backtracks(params):
-        return cost + _constraint_l1(model, prob, contact, q_try, mu)
-    return cost
+    with instrument("physics.trial"):
+        cost = trajectory.cost(model, prob, contact, q_try)
+        if _backtracks(params):
+            return cost + _constraint_l1(model, prob, contact, q_try, mu)
+        return cost
 
 
 def _search_start(model, prob, params, qs, dq, L, g, mu):
@@ -171,26 +173,33 @@ def _prepare(model, prob, params, qs, use_constraints):
     """(cost, merit gradient, full Newton step) at qs, unscaled, with the
     Thomas solver."""
     contact = params.contact
-    cost = trajectory.cost(model, prob, contact, qs)
-    g = trajectory.gradient(model, prob, contact, qs)
-    parts = id_partials_for(model, prob, params, qs)
-    H = gauss_newton_hessian(model, prob, parts, nplus_stack(model, qs))
-    factor = penta.factorize(H)
+    with instrument("physics.cost"):
+        cost = trajectory.cost(model, prob, contact, qs)
+        g = trajectory.gradient(model, prob, contact, qs)
+    with instrument("physics.partials"):
+        parts = id_partials_for(model, prob, params, qs)
+        nplus = nplus_stack(model, qs)
+    with instrument("linalg.assemble"):
+        H = gauss_newton_hessian(model, prob, parts, nplus)
+    with instrument("linalg.factor"):
+        factor = penta.factorize(H)
     if use_constraints:
         # Merit gradient g + J^T lambda with the trust region's Schur
         # multipliers, here on the unscaled Hessian.
-        unact = model.unactuated_vdofs
-        tau = trajectory.generalized_forces(model, prob, contact, qs)
-        h = tau[:, :, index(unact, tau.device)].reshape(qs.shape[0], -1)
-        J = _constraint_jacobian_dense(model, prob, parts, unact)
-        Hinv_JT = penta.solve_factorized_many(factor, J)
-        S = torch.einsum("banq,bcnq->bac", J, Hinv_JT)
-        Hinv_g = penta.solve_factorized(factor, g)
-        lam = linalg.solve(
-            S, (h - torch.einsum("banq,bnq->ba", J, Hinv_g))[..., None]
-        )[..., 0]
-        g = g + torch.einsum("banq,ba->bnq", J, lam)
-    return cost, g, -penta.solve_factorized(factor, g)
+        with instrument("linalg.constraints"):
+            unact = model.unactuated_vdofs
+            tau = trajectory.generalized_forces(model, prob, contact, qs)
+            h = tau[:, :, index(unact, tau.device)].reshape(qs.shape[0], -1)
+            J = _constraint_jacobian_dense(model, prob, parts, unact)
+            Hinv_JT = penta.solve_factorized_many(factor, J)
+            S = torch.einsum("banq,bcnq->bac", J, Hinv_JT)
+            Hinv_g = penta.solve_factorized(factor, g)
+            lam = linalg.solve(
+                S, (h - torch.einsum("banq,bnq->ba", J, Hinv_g))[..., None]
+            )[..., 0]
+            g = g + torch.einsum("banq,ba->bnq", J, lam)
+    with instrument("linalg.newton"):
+        return cost, g, -penta.solve_factorized(factor, g)
 
 
 class _State(NamedTuple):
@@ -275,7 +284,9 @@ def _advance(model, params, s, active, cost, g, dq, early, carry):
 def _finish(model, probs, params, s):
     """(Solution, Stats, WarmStart) of the final state."""
     B = s.q.shape[0]
-    tau, v = rollout.generalized_forces(model, probs, params.contact, s.q)
+    with instrument("physics.forces"):
+        tau, v = rollout.generalized_forces(model, probs, params.contact,
+                                            s.q)
     flag = torch.where(
         s.failed,
         torch.full_like(s.k, int(SolverFlag.LINESEARCH_MAX_ITERS)),
@@ -339,8 +350,11 @@ def solve_linesearch(model, probs, params: SolverParameters, q_guesses):
                     model, p, params, q, d, k, cr, mu, max_ls, chunk),
                 probs, s.q, dq, consts, carry)
             # Host read once a chunk, none after the last.
-            if c + 1 == chunks or not bool(searching):
+            if c + 1 == chunks:
                 break
+            with instrument("ls.read_chunk"):
+                if not bool(searching):
+                    break
         s, more = region(
             "ls.advance",
             lambda st, a, co, gg, d, e, cr: _advance(model, params, st, a,
@@ -349,8 +363,11 @@ def solve_linesearch(model, probs, params: SolverParameters, q_guesses):
         if params.record_iteration_times:
             itimer.mark()
         # Host read once an iteration, none after the last.
-        if it + 1 == K or not bool(more):
+        if it + 1 == K:
             break
+        with instrument("ls.read_more"):
+            if not bool(more):
+                break
     sol, stats, warm = region(
         "ls.finish", lambda p, st: _finish(model, p, params, st), probs, s,
         clone=True)

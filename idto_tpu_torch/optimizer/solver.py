@@ -48,6 +48,7 @@ from idto_tpu_torch.parallel import horizon as parallel_horizon
 from idto_tpu_torch.soa import rollout
 from idto_tpu_torch.utils import linalg
 from idto_tpu_torch.utils.consts import index
+from idto_tpu_torch.utils.profiler import instrument
 from idto_tpu_torch.utils.structs import tensor_dataclass
 
 
@@ -348,44 +349,50 @@ def _newton_tail(cost, D, Hs, gs, h, Js, factor, fact_ok,
         # Lagrange multipliers: (J~ H~^-1 J~^T) lam = h - J~ H~^-1 g~.  All
         # n_h + 1 solves share one factorization (one launch of the fused
         # kernel).
-        sols = _lin_solve_many(factor, torch.cat([gs[:, None], Js], dim=1))
-        Hinv_g, Hinv_JT = sols[:, 0], sols[:, 1:]
-        S = torch.einsum("banq,bcnq->bac", Js, Hinv_JT)
-        rhs = h - torch.einsum("banq,bnq->ba", Js, Hinv_g)
-        lam = linalg.solve(S, rhs[..., None])[..., 0]
-        g_merit = gs + torch.einsum("banq,ba->bnq", Js, lam)
-        merit = cost + _bsum(h * lam)
+        with instrument("linalg.constraints"):
+            sols = _lin_solve_many(factor,
+                                   torch.cat([gs[:, None], Js], dim=1))
+            Hinv_g, Hinv_JT = sols[:, 0], sols[:, 1:]
+            S = torch.einsum("banq,bcnq->bac", Js, Hinv_JT)
+            rhs = h - torch.einsum("banq,bnq->ba", Js, Hinv_g)
+            lam = linalg.solve(S, rhs[..., None])[..., 0]
+            g_merit = gs + torch.einsum("banq,ba->bnq", Js, lam)
+            merit = cost + _bsum(h * lam)
     else:
         lam = h
         g_merit = gs
         merit = cost
 
-    p_newton = -_lin_solve(factor, g_merit)
-    p_raw = p_newton if keep_raw else None
-    Hg = _lin_matvec(Hs, g_merit)
-    gg = _bsum(g_merit * g_merit)
-    gHg = _bsum(g_merit * Hg)
-    p_cauchy = -_bcast(gg / torch.clamp_min(gHg, 1e-300), g_merit) * g_merit
+    with instrument("linalg.newton"):
+        p_newton = -_lin_solve(factor, g_merit)
+        p_raw = p_newton if keep_raw else None
+        Hg = _lin_matvec(Hs, g_merit)
+        gg = _bsum(g_merit * g_merit)
+        gHg = _bsum(g_merit * Hg)
+        p_cauchy = -_bcast(gg / torch.clamp_min(gHg, 1e-300),
+                           g_merit) * g_merit
 
-    # Per-scenario containment: accept the Newton step only if its residual
-    # is small relative to the gradient, else take the (always descent)
-    # Cauchy step and report the degradation through solve_ok.
-    res = _lin_matvec(Hs, p_newton) + g_merit
-    tiny = torch.finfo(dtype).tiny
-    rel_res = torch.sqrt(_bsum(res * res)) / torch.sqrt(
-        torch.clamp_min(gg, tiny)
-    )
-    solve_ok = _ball(torch.isfinite(p_newton)) & (
-        rel_res < containment_rtol(dtype)
-    )
-    p_newton = torch.where(_bcast(solve_ok, p_newton), p_newton, p_cauchy)
-    fact_ok = fact_ok & _ball(torch.isfinite(p_newton))
+        # Per-scenario containment: accept the Newton step only if its
+        # residual is small relative to the gradient, else take the (always
+        # descent) Cauchy step and report the degradation through solve_ok.
+        res = _lin_matvec(Hs, p_newton) + g_merit
+        tiny = torch.finfo(dtype).tiny
+        rel_res = torch.sqrt(_bsum(res * res)) / torch.sqrt(
+            torch.clamp_min(gg, tiny)
+        )
+        solve_ok = _ball(torch.isfinite(p_newton)) & (
+            rel_res < containment_rtol(dtype)
+        )
+        p_newton = torch.where(_bcast(solve_ok, p_newton), p_newton,
+                               p_cauchy)
+        fact_ok = fact_ok & _ball(torch.isfinite(p_newton))
 
-    return _Prepared(
-        cost=cost, merit=merit, D=D, g_merit=g_merit, H=Hs, factor=factor,
-        p_newton=p_newton, p_cauchy=p_cauchy, h=h, lam=lam, fact_ok=fact_ok,
-        solve_ok=solve_ok, gs=gs, Js=Js, p_raw=p_raw,
-    )
+        return _Prepared(
+            cost=cost, merit=merit, D=D, g_merit=g_merit, H=Hs,
+            factor=factor, p_newton=p_newton, p_cauchy=p_cauchy, h=h,
+            lam=lam, fact_ok=fact_ok, solve_ok=solve_ok, gs=gs, Js=Js,
+            p_raw=p_raw,
+        )
 
 
 def _factor_status(factor, B, device):
@@ -431,33 +438,38 @@ def _prepare_from_physics(
     (``compares_dense``) the Newton step before containment is kept in
     ``p_raw``."""
     B = q.shape[0]
-    g = gradient_from_partials(model, prob, parts, nplus, q, v, tau)
-    if _use_dense(params):
-        # The exact Hessian (testing), or the Gauss-Newton one densified.
-        if params.exact_hessian:
-            H = _exact_hessian_dense(model, prob, params, q, cost_fn)
+    dense = _use_dense(params)
+    with instrument("linalg.assemble"):
+        g = gradient_from_partials(model, prob, parts, nplus, q, v, tau)
+        if dense:
+            # The exact Hessian (testing), or the Gauss-Newton one
+            # densified.
+            if params.exact_hessian:
+                H = _exact_hessian_dense(model, prob, params, q, cost_fn)
+            else:
+                H = penta.to_dense(gauss_newton_hessian(model, prob, parts,
+                                                        nplus))
+            diag = torch.diagonal(H, dim1=-2, dim2=-1).reshape(q.shape)
         else:
-            H = penta.to_dense(gauss_newton_hessian(model, prob, parts, nplus))
-        diag = torch.diagonal(H, dim1=-2, dim2=-1).reshape(q.shape)
+            H = gauss_newton_hessian(model, prob, parts, nplus)
+            diag = penta.extract_diagonal(H)
         D, Hs, gs = _scaled(H, g, params, D_prev, diag)
-        factor = _dense_factorize(Hs)
-    else:
-        H = gauss_newton_hessian(model, prob, parts, nplus)
-        D, Hs, gs = _scaled(H, g, params, D_prev, penta.extract_diagonal(H))
-        factor = _sparse_factorize(params, Hs, horizon)
+    with instrument("linalg.factor"):
+        factor = (_dense_factorize(Hs) if dense
+                  else _sparse_factorize(params, Hs, horizon))
+        status = _factor_status(factor, B, q.device)
 
     unact = model.unactuated_vdofs
     if params.equality_constraints and prob.num_steps * len(unact) > 0:
-        h = tau[:, :, index(unact, tau.device)].reshape(B, -1)
-        Js = _constraint_jacobian_dense(model, prob, parts, unact) \
-            * D[:, None]  # J~ = J D
+        with instrument("linalg.constraints"):
+            h = tau[:, :, index(unact, tau.device)].reshape(B, -1)
+            Js = _constraint_jacobian_dense(model, prob, parts, unact) \
+                * D[:, None]  # J~ = J D
     else:
         h = torch.zeros((B, 0), dtype=q.dtype, device=q.device)
         Js = None
-    return _newton_tail(
-        cost, D, Hs, gs, h, Js, factor, _factor_status(factor, B, q.device),
-        keep_raw=compares_dense(params),
-    )
+    return _newton_tail(cost, D, Hs, gs, h, Js, factor, status,
+                        keep_raw=compares_dense(params))
 
 
 def _dogleg(prep: _Prepared, Delta):

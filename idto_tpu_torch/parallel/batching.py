@@ -43,23 +43,28 @@ def solve_batch(model: Model, probs: ProblemDefinition, params, q_guesses,
     the JAX package."""
     from idto_tpu_torch.optimizer.batched import can_solve_batched_native
     from idto_tpu_torch.optimizer.problem import SolverMethod
+    from idto_tpu_torch.utils.profiler import instrument
 
     if native is None:
         native = can_solve_batched_native(model, params)
-    if not native:
-        from idto_tpu_torch.optimizer.solver import solve_trust_region
+    with instrument("batch.solve"):
+        if not native:
+            from idto_tpu_torch.optimizer.solver import solve_trust_region
 
-        outs = [solve_trust_region(
-            model, map_scenarios(lambda x, b=b: x[b], probs), params,
-            q_guesses[b]) for b in range(q_guesses.shape[0])]
-        return tuple(_stack_rows([o[i] for o in outs]) for i in range(3))
-    if params.method == SolverMethod.LINESEARCH:
-        from idto_tpu_torch.optimizer.linesearch import solve_linesearch
+            outs = [solve_trust_region(
+                model, map_scenarios(lambda x, b=b: x[b], probs), params,
+                q_guesses[b]) for b in range(q_guesses.shape[0])]
+            return tuple(_stack_rows([o[i] for o in outs])
+                         for i in range(3))
+        if params.method == SolverMethod.LINESEARCH:
+            from idto_tpu_torch.optimizer.linesearch import solve_linesearch
 
-        return solve_linesearch(model, probs, params, q_guesses)
-    from idto_tpu_torch.optimizer.batched import solve_trust_region_batched
+            return solve_linesearch(model, probs, params, q_guesses)
+        from idto_tpu_torch.optimizer.batched import (
+            solve_trust_region_batched,
+        )
 
-    return solve_trust_region_batched(model, probs, params, q_guesses)
+        return solve_trust_region_batched(model, probs, params, q_guesses)
 
 
 def broadcast_problem(prob: ProblemDefinition, batch: int) -> ProblemDefinition:

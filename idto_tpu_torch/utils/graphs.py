@@ -45,6 +45,14 @@ launches of each counted kernel it holds; each replay adds that number.
 The warm-up's launches go to :data:`warmup_launches`, not to the kernel's
 count, and the capture's own calls of the wrapper launch nothing.
 
+**Spans** (``utils/profiler.py``): each region is the outermost span of
+its callable.  A capture gives it fresh site ids, its warm-up stamps them
+as ordinary launches, and the capture places a stamp at the first and the
+last node of the graph, so that every replay stamps the region and the
+named spans inside it on the device.  A direct run stamps under the
+region's one direct scope.  The host spans ``graphs.copy_in <region>``
+and ``graphs.launch <region>`` go around a replay's copies and launch.
+
 **Collectives** (``group``): a region that makes collectives over a
 process group is captured with them when the group runs NCCL.  Its
 communicator comes into being in the warm-up, on the side stream, before
@@ -77,6 +85,8 @@ import weakref
 from typing import Any, Callable
 
 import torch
+
+from idto_tpu_torch.utils import profiler
 
 _DIRECT, _STAND_IN = "direct", "stand_in"
 _mode = None  # None: capture CUDA tensors; or _DIRECT / _STAND_IN
@@ -283,6 +293,9 @@ class _Entry:
     graph: Any = None  # torch.cuda.CUDAGraph, or the callable (stand-in)
     launches: tuple = ()  # per counter, launches a replay makes
     keep: tuple = ()  # objects the key names by identity
+    scope: Any = None  # the sites of its spans (utils/profiler.py)
+    copy_in: str = ""  # the host spans around a replay
+    launch: str = ""
 
 
 def _counts():
@@ -309,9 +322,10 @@ def run(name: str, fn: Callable, args: tuple, *, model=None, key=(),
     leaves: list = []
     spec = _flatten(args, leaves)
     device = leaves[0].device if leaves else None
-    if _mode == _DIRECT or device is None or (
-            device.type == "cpu" and _mode != _STAND_IN):
+    if device is None:
         return fn(*args)
+    if _mode == _DIRECT or (device.type == "cpu" and _mode != _STAND_IN):
+        return _direct(name, fn, args, device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"region {name!r}: no graphs on {device}")
     if group is not None and device.type == "cuda":
@@ -319,7 +333,7 @@ def run(name: str, fn: Callable, args: tuple, *, model=None, key=(),
 
         if dist.get_backend(group) != "nccl":  # no graph holds gloo's
             direct_runs[name] = direct_runs.get(name, 0) + 1
-            return fn(*args)
+            return _direct(name, fn, args, device)
     full_key = (name, id(model), key, spec, tuple(_meta(t) for t in leaves))
     entry = _entries.get(full_key)
     if group is not None:
@@ -328,6 +342,12 @@ def run(name: str, fn: Callable, args: tuple, *, model=None, key=(),
         entry = _capture(name, fn, spec, leaves, device, model)
         _entries[full_key] = entry
     return _replay(entry, leaves, clone)
+
+
+def _direct(name, fn, args, device):
+    """``fn(*args)`` run directly, its spans stamped as the region's."""
+    with profiler.region(profiler.direct_scope(name, device)):
+        return fn(*args)
 
 
 def _capture(name, fn, spec, leaves, device, model) -> _Entry:
@@ -345,13 +365,20 @@ def _capture(name, fn, spec, leaves, device, model) -> _Entry:
         else:
             inputs.append(_buffer(t))
             _copy(inputs[-1], t)
-    entry = _Entry(name=name, inputs=inputs, keep=(model,))
+    # The region's spans: fresh sites, stamped in the warm-up, captured as
+    # the graph's first and last nodes (each replay stamps again).
+    scope = profiler.Scope(name, device)
+    entry = _Entry(name=name, inputs=inputs, keep=(model,), scope=scope,
+                   copy_in=f"graphs.copy_in {name}",
+                   launch=f"graphs.launch {name}")
 
     def call():
-        return fn(*_unflatten(spec, iter(inputs)))
+        with profiler.region(scope):
+            return fn(*_unflatten(spec, iter(inputs)))
 
     before = _counts()
     if device.type == "cuda":
+        profiler.prepare(device)
         stream = _streams.setdefault(device, torch.cuda.Stream(device))
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
@@ -406,26 +433,28 @@ def _replay(entry: _Entry, leaves, clone: bool):
     global replays
     # A leaf that is another slot's buffer is read before any copy lands.
     dests = {id(b) for b in entry.inputs}
-    leaves = [t.clone() if id(t) in dests and t is not b else t
-              for t, b in zip(leaves, entry.inputs)]
-    for t, buf in zip(leaves, entry.inputs):
-        if t is not buf:
-            _copy(buf, t)
+    with profiler.instrument(entry.copy_in):
+        leaves = [t.clone() if id(t) in dests and t is not b else t
+                  for t, b in zip(leaves, entry.inputs)]
+        for t, buf in zip(leaves, entry.inputs):
+            if t is not buf:
+                _copy(buf, t)
     counts = _counts()
-    if isinstance(entry.graph, torch.cuda.CUDAGraph):
-        try:
-            entry.graph.replay()
-        except Exception as e:
-            raise RuntimeError(
-                f"CUDA graph replay of the region {entry.name!r} failed: {e}"
-            ) from e
-    else:
-        out = entry.graph()
-        fresh: list = []
-        _flatten(out, fresh)
-        for dst, src in zip(entry.outputs, fresh):
-            if dst is not src:
-                _copy(dst, src)
+    with profiler.instrument(entry.launch):
+        if isinstance(entry.graph, torch.cuda.CUDAGraph):
+            try:
+                entry.graph.replay()
+            except Exception as e:
+                raise RuntimeError(
+                    f"CUDA graph replay of the region {entry.name!r} "
+                    f"failed: {e}") from e
+        else:
+            out = entry.graph()
+            fresh: list = []
+            _flatten(out, fresh)
+            for dst, src in zip(entry.outputs, fresh):
+                if dst is not src:
+                    _copy(dst, src)
     _set_counts([c + n for c, n in zip(counts, entry.launches)])
     replays += 1
     outs = [t.clone() if clone else t for t in entry.outputs]

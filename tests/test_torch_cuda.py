@@ -826,3 +826,103 @@ def test_captured_horizon_loop_world_one_on_nccl(cuda):
     finally:
         graphs.reset()  # the graphs hold the group's collectives
         dist.destroy_process_group()
+
+
+def _device_ops_by_launch(prof, tmp_path):
+    """[kernels, copies and fills each cudaGraphLaunch ran] of a profiled
+    stretch, in launch order, from its Chrome trace."""
+    import json
+
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    got = {e["args"]["correlation"]: 0 for e in events
+           if e.get("cat") == "cuda_runtime"
+           and e.get("name") == "cudaGraphLaunch"}
+    for e in events:
+        c = e.get("args", {}).get("correlation")
+        if c in got and e.get("cat") in ("kernel", "gpu_memcpy",
+                                         "gpu_memset"):
+            got[c] += 1
+    return [got[c] for c in sorted(got)]
+
+
+@pytest.mark.cuda
+def test_span_stamps_replay_and_count_the_captured_kernels(cuda, tmp_path):
+    """The device stamps of ``utils/profiler.py`` inside captured graphs: a
+    replay of a region with one named span stamps four records in order;
+    each graph of a replan (the pendulum at T=4) holds, by the count made
+    at its capture, as many device operations as the profiler records for
+    one replay of it (kernels, and copies and fills, most of which the
+    card runs as kernels); and the resolution of ``%globaltimer`` (the
+    smallest step between stamps), printed."""
+    import math
+
+    from idto_tpu_torch.mpc import controller as mpc
+    from idto_tpu_torch.utils import graphs, profiler
+
+    graphs.reset()
+    x = torch.randn(64, 64, dtype=torch.float64, device=cuda)
+
+    def fn(a):
+        with profiler.instrument("inner"):
+            b = torch.sin(a @ a) + 1.0
+        return b * 2.0
+
+    graphs.run("stamps", fn, (x,))  # warm-up, capture, replay
+    before = profiler.device_records(cuda)[0]
+    for _ in range(50):
+        graphs.run("stamps", fn, (x,))
+    count, records = profiler.device_records(cuda)
+    assert count - before == 4 * 50
+    ivs = profiler.intervals(records[-200:])
+    assert [profiler.sites[s].name for s, *_ in ivs[:2]] == ["stamps",
+                                                             "inner"]
+    assert all(t1 > t0 for _, _, t0, t1, _ in ivs)
+    ts = np.sort(records[-200:, 1] - records[-200, 1])
+    steps = np.diff(ts)
+    print(f"%globaltimer: smallest step {int(steps[steps > 0].min())} ns "
+          f"(values multiples of {math.gcd(*ts.tolist())} ns)")
+    # A reset empties the ring in place: the graph stamps the same memory.
+    held = profiler._rings[profiler._device(cuda)]
+    profiler.reset()
+    graphs.run("stamps", fn, (x,))
+    assert profiler._rings[profiler._device(cuda)] is held
+    assert profiler.device_records(cuda)[0] == 4
+
+    graphs.reset()
+    model, cfg, prob, params, q_guess = load_example("pendulum", device=cuda)
+    T = 4
+    prob = prob.replace(num_steps=T, q_nom=prob.q_nom[: T + 1],
+                        v_nom=prob.v_nom[: T + 1])
+    probs = broadcast_problem(prob, 1)
+    carry, _ = mpc.mpc_initialize(model, probs, params.replace(
+        max_iterations=1), q_guess[None, : T + 1])
+    x0 = torch.cat([prob.q_init, prob.v_init])[None]
+    t = torch.full((), 0.05, dtype=torch.float64, device=cuda)
+    mpc.mpc_step(model, probs, mpc.make_mpc_params(params, 1),
+                 np.zeros(model.nq), carry, x0, t)
+    torch.cuda.synchronize()
+    entries = [e for e in graphs._entries.values()
+               if isinstance(e.graph, torch.cuda.CUDAGraph)]
+    assert len(entries) >= 6
+    before = profiler.device_records(cuda)[0]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for e in entries:
+            e.graph.replay()
+        torch.cuda.synchronize()
+    traced = _device_ops_by_launch(prof, tmp_path)
+    count, records = profiler.device_records(cuda)
+    top = [profiler.sites[s] for s, *_ in
+           profiler.intervals(records[len(records) - (count - before):])
+           if profiler.sites[s].parent == -1]
+    assert [s.name for s in top] == [e.name for e in entries]
+    assert all(s.kernels is not None for s in top)
+    captured = [s.kernels + 2 for s in top]  # and the region's stamps
+    print(f"device operations a graph, capture / profiler: {captured} / "
+          f"{traced}")
+    assert traced == captured
+    graphs.reset()

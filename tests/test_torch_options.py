@@ -462,9 +462,13 @@ def test_timing_and_profiler_on_the_cpu():
     assert timing.time_throughput(lambda a: a @ a, [(x,)], calls=3,
                                   device="cpu") > 0.0
     profiler.reset()
-    with profiler.instrument("outer"):
-        with profiler.instrument("inner"):
-            x @ x
+    profiler.set_enabled(True)  # the host-clock table is off by default
+    try:
+        with profiler.instrument("outer"):
+            with profiler.instrument("inner"):
+                x @ x
+    finally:
+        profiler.set_enabled(False)
     table = profiler.table_of_averages()
     assert "outer" in table and "inner" in table
     profiler.reset()
