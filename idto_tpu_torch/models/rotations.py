@@ -95,7 +95,7 @@ def unskew(m):
 def axis_angle_to_rot(axes, angles):
     """Rodrigues: unit axes (3, g) and angles (g, N) -> (3, 3, g, N)."""
     K = skew(axes)[..., None]  # (3, 3, g, 1)
-    KK = torch.einsum("ik...,kj...->ij...", K, K)
+    KK = (K[:, :, None] * K[None]).sum(1)  # K @ K, as soa/mat3.py::mul
     c = torch.cos(angles)[None, None]
     s = torch.sin(angles)[None, None]
     eye = torch.eye(3, dtype=angles.dtype, device=angles.device)[

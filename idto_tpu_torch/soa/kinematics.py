@@ -3,10 +3,10 @@
 
 Operands are component-leading with one flat trailing instance axis N:
 q (nq, N), v (nv, N), link rotations (3, 3, nl, N), positions (3, nl, N).
-FK runs level by level over the static level schedule (one batched
-compose per tree depth) and joints are evaluated one batched call per
-joint type.  Everything is out-of-place so ``torch.func`` transforms
-compose through it.
+FK and the body velocities run level by level over the static level
+schedule (one batched compose per tree depth) and joints are evaluated
+one batched call per joint type.  Everything is out-of-place so
+``torch.func`` transforms compose through it.
 """
 from __future__ import annotations
 
@@ -82,37 +82,37 @@ def local_transforms(model: Model, q):
     return mat3.mul(R_pj, R_j), p_pj + mat3.mv(R_pj, p_j)
 
 
-def forward_kinematics(model: Model, q):
-    """World link poses: q (nq, N) -> (R (3, 3, nl, N), p (3, nl, N))."""
-    nl = model.num_links
-    device = q.device
-    R_pc, p_pc = local_transforms(model, q)
-
+def _down_the_tree(model: Model, local, compose):
+    """World quantities per link from per-joint ones in the parent frame,
+    level by level down the tree: ``local`` is a tuple of tensors with the
+    joint axis second to last, and ``compose(parent, loc)`` gives a level's
+    tuple from its parents' and its own."""
+    device = local[0].device
     order = [j for level in model.levels for j in level]
     pos = {j: i for i, j in enumerate(order)}
-    R_acc, p_acc = [], []
+    acc = []
     for d, level in enumerate(model.levels):
-        idx = _idx(level, device)
-        R_loc = R_pc[:, :, idx, :]
-        p_loc = p_pc[:, idx, :]
+        loc = tuple(x[..., _idx(level, device), :] for x in local)
         if d == 0:
-            R_lvl, p_lvl = R_loc, p_loc
-        else:
-            ppos = _idx([pos[model.joint_parents[j]] for j in level], device)
-            R_par = torch.cat(R_acc, dim=2)[:, :, ppos, :]
-            p_par = torch.cat(p_acc, dim=1)[:, ppos, :]
-            R_lvl = mat3.mul(R_par, R_loc)
-            p_lvl = p_par + mat3.mv(R_par, p_loc)
-        R_acc.append(R_lvl)
-        p_acc.append(p_lvl)
-
-    inv = np.empty(nl, dtype=np.int64)
-    inv[np.asarray(order)] = np.arange(nl)
+            acc.append(loc)
+            continue
+        ppos = _idx([pos[model.joint_parents[j]] for j in level], device)
+        par = tuple(torch.cat(xs, dim=-2)[..., ppos, :] for xs in zip(*acc))
+        acc.append(compose(par, loc))
+    inv = np.empty(model.num_links, dtype=np.int64)
+    inv[np.asarray(order)] = np.arange(model.num_links)
     inv = _idx(inv, device)
-    return (
-        torch.cat(R_acc, dim=2)[:, :, inv, :],
-        torch.cat(p_acc, dim=1)[:, inv, :],
-    )
+    return tuple(torch.cat(xs, dim=-2)[..., inv, :] for xs in zip(*acc))
+
+
+def forward_kinematics(model: Model, q):
+    """World link poses: q (nq, N) -> (R (3, 3, nl, N), p (3, nl, N))."""
+
+    def compose(par, loc):
+        (R_par, p_par), (R_loc, p_loc) = par, loc
+        return mat3.mul(R_par, R_loc), p_par + mat3.mv(R_par, p_loc)
+
+    return _down_the_tree(model, local_transforms(model, q), compose)
 
 
 def _floating_joints(model: Model):
@@ -145,7 +145,7 @@ def v_to_qdot(model: Model, q, v):
         if jt == JointType.FLOATING:
             w = v[vs : vs + 3]
             Nq = quat_rate_matrix(q[qs : qs + 4])  # (4, 3, N)
-            segs.append(torch.einsum("ik...,k...->i...", Nq, w))
+            segs.append((Nq * w[None]).sum(1))
             segs.append(v[vs + 3 : vs + 6])
         elif nvj > 0:
             segs.append(v[vs : vs + nvj])
@@ -164,7 +164,7 @@ def qdot_to_v(model: Model, q, qdot):
         if jt == JointType.FLOATING:
             qd4 = qdot[qs : qs + 4]
             Npi = quat_rate_pinv(q[qs : qs + 4])  # (3, 4, N)
-            segs.append(torch.einsum("ik...,k...->i...", Npi, qd4))
+            segs.append((Npi * qd4[None]).sum(1))
             segs.append(qdot[qs + 4 : qs + 7])
         elif nqj > 0:
             segs.append(qdot[qs : qs + nqj])
@@ -197,13 +197,25 @@ def nplus_matrix(model: Model, q):
 
 def body_velocities(model: Model, q, v):
     """World spatial velocities per link: (R, p, w, pd) with R (3,3,nl,N)
-    and p/w/pd (3,nl,N) -- qdot pushed through FK with a jvp."""
+    and p/w/pd (3,nl,N).  A jvp of each joint's local transform gives its
+    velocity in the parent frame -- w_loc = unskew(Rd R^T) as
+    sum_k r_k x rd_k / 2 over the columns -- and the tree carries the
+    velocities down with the poses: w = w_par + R_par w_loc and
+    pd = pd_par + w_par x (R_par p_loc) + R_par pd_loc.  Nothing
+    differentiates the world poses, so no 3x3 tangent is composed level by
+    level."""
     qdot = v_to_qdot(model, q, v)
-    (R, p), (Rd, pd) = jvp(
-        lambda qq: forward_kinematics(model, qq), (q,), (qdot,)
+    (R_pc, p_pc), (Rd_pc, pd_pc) = jvp(
+        lambda qq: local_transforms(model, qq), (q,), (qdot,)
     )
-    W = mat3.mul_t(Rd, R)
-    w = 0.5 * torch.stack(
-        [W[2, 1] - W[1, 2], W[0, 2] - W[2, 0], W[1, 0] - W[0, 1]], dim=0
-    )
-    return R, p, w, pd
+    w_pc = 0.5 * mat3.cross(R_pc, Rd_pc).sum(1)
+
+    def compose(par, loc):
+        R_par, p_par, w_par, pd_par = par
+        R_loc, p_loc, w_loc, pd_loc = loc
+        r = mat3.mv(R_par, p_loc)
+        return (mat3.mul(R_par, R_loc), p_par + r,
+                w_par + mat3.mv(R_par, w_loc),
+                pd_par + mat3.cross(w_par, r) + mat3.mv(R_par, pd_loc))
+
+    return _down_the_tree(model, (R_pc, p_pc, w_pc, pd_pc), compose)

@@ -2,10 +2,13 @@
 ``idto_tpu/soa/mat3.py``).
 
 Matrices are ``(3, 3, ...)`` and vectors ``(3, ...)`` with the instance
-axes trailing (broadcast like any elementwise op).  Each contraction is a
-single ``einsum`` rather than the JAX package's 45 component multiply-adds:
-under nested ``torch.func`` transforms every dispatched op costs a fixed
-host overhead, so the op count, not the arithmetic, sets the time.
+axes trailing; both operands of a product carry the same number of them
+(size 1 where one is broadcast, e.g. ``R[..., None]``).  Each contraction
+is one broadcast elementwise multiply and one sum over the contracted
+component axis, never ``einsum``/``matmul``: a product of tiny matrices
+batched over instances is memory-bound, and as a batched GEMM (what
+``einsum`` lowers it to, after a layout copy of the strided operands)
+cuBLAS spends a whole 32x64 tile on each 3x3.
 """
 from __future__ import annotations
 
@@ -14,27 +17,27 @@ import torch
 
 def mul(A, B):
     """A @ B."""
-    return torch.einsum("ik...,kj...->ij...", A, B)
+    return (A[:, :, None] * B[None]).sum(1)
 
 
 def mul_t(A, B):
     """A @ B^T."""
-    return torch.einsum("ik...,jk...->ij...", A, B)
+    return (A[:, None] * B[None]).sum(2)
 
 
 def t_mul(A, B):
     """A^T @ B."""
-    return torch.einsum("ki...,kj...->ij...", A, B)
+    return (A[:, :, None] * B[:, None]).sum(0)
 
 
 def mv(A, v):
     """A @ v for (3, 3, ...) x (3, ...)."""
-    return torch.einsum("ij...,j...->i...", A, v)
+    return (A * v[None]).sum(1)
 
 
 def tmv(A, v):
     """A^T @ v."""
-    return torch.einsum("ji...,j...->i...", A, v)
+    return (A * v[:, None]).sum(0)
 
 
 def cross(a, b):

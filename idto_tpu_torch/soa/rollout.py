@@ -50,7 +50,9 @@ def generalized_forces(model: Model, prob, contact_params, qs, v=None,
     v_next = v[:, 1:].reshape(B * T, nv).T
     a_flat = a.reshape(B * T, nv).T
     tau = soa_contact.step_tau(model, contact_params, q_next, v_next, a_flat)
-    return tau.reshape(nv, B, T).permute(1, 2, 0), v
+    # Contiguous (B, T, nv): a trajectory's cost then sums its terms in the
+    # same order whatever the batch size.
+    return tau.reshape(nv, B, T).permute(1, 2, 0).contiguous(), v
 
 
 def cost(model: Model, prob, contact_params, qs, tau=None, v=None):

@@ -4,6 +4,10 @@ step_tau, the rollout cost and the exact partials, at B=2, T=4 on spinner
 (contact, planar finger) and mini_cheetah (floating base, sphere-box and
 box-box pairs).
 
+The body velocities carried down the tree are also held to their JAX-form
+definition (a jvp of the world poses) on five models, with their forward
+derivative, to 1e-12.
+
 Both sides evaluate the same float64 expressions in the same order, up to
 the summation order of small contractions, so values agree to ~1e-15;
 the stated tolerances are 1e-10 relative (1e-9 for the partials, which
@@ -14,6 +18,7 @@ wrenches from goldens/torch_aos_punyo.npz (``scripts/make_torch_goldens.py
 soa aos_punyo``): eagerly or jitted, each takes from seconds to a minute on
 the CPU.
 """
+import functools
 import os
 
 import jax
@@ -21,15 +26,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.func import jvp, vjp, vmap
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from idto_tpu.examples.registry import load_example as jax_load_example
 from idto_tpu.models.model import JointType
 from idto_tpu.soa import contact as jcon
 from idto_tpu.soa import partials as jpart
 from idto_tpu_torch import convert
+from idto_tpu_torch.examples.registry import load_example
 from idto_tpu_torch.soa import contact as tcon
 from idto_tpu_torch.soa import dynamics as tdyn
 from idto_tpu_torch.soa import kinematics as tkin
+from idto_tpu_torch.soa import mat3 as tmat3
 from idto_tpu_torch.soa import partials as tpart
 from idto_tpu_torch.soa import rollout as troll
 
@@ -104,6 +113,43 @@ def test_kinematics(case):
     assert _rel(qd_t, ref["qdot"]) < RTOL
     assert _rel(tkin.qdot_to_v(tm, q, qd_t), ref["v_back"]) < RTOL
     assert _rel(tkin.nplus_matrix(tm, q), ref["nplus"]) < RTOL
+
+
+def _velocities_by_jvp_of_the_poses(model, q, v):
+    """The body velocities as a jvp of the world poses, w read off the skew
+    part of Rd R^T: the JAX package's form."""
+    qdot = tkin.v_to_qdot(model, q, v)
+    (R, p), (Rd, pd) = jvp(lambda qq: tkin.forward_kinematics(model, qq),
+                           (q,), (qdot,))
+    W = tmat3.mul_t(Rd, R)
+    w = 0.5 * torch.stack(
+        [W[2, 1] - W[1, 2], W[0, 2] - W[2, 0], W[1, 0] - W[0, 1]], dim=0)
+    return R, p, w, pd
+
+
+# Revolute chains, a planar base, a floating base, the hand's fingers.
+@pytest.mark.parametrize("name", ["acrobot", "hopper", "spinner",
+                                  "mini_cheetah", "allegro_hand"])
+def test_body_velocities_down_the_tree_equal_the_jvp_of_the_poses(name):
+    """The same function: values and their forward derivative in (q, v),
+    which body_accelerations and the partials take, to rounding."""
+    model = load_example(name, device="cpu")[0]
+    rng = np.random.default_rng(23)
+    n = 6
+    q = rng.standard_normal((model.nq, n)) * 0.5
+    for j in range(model.num_joints):
+        if JointType(model.joint_types[j]) == JointType.FLOATING:
+            q[model.q_starts[j]] += 1.0
+    primals = (torch.tensor(q),
+               torch.tensor(rng.standard_normal((model.nv, n))))
+    tangents = tuple(torch.tensor(rng.standard_normal(tuple(x.shape)))
+                     for x in primals)
+    got = jvp(lambda qq, vv: tkin.body_velocities(model, qq, vv), primals,
+              tangents)
+    want = jvp(lambda qq, vv: _velocities_by_jvp_of_the_poses(model, qq, vv),
+               primals, tangents)
+    for x, y in zip(got[0] + got[1], want[0] + want[1]):
+        assert x.shape == y.shape and _rel(x, y) < 1e-12
 
 
 def test_dynamics_and_contact(case):
@@ -400,3 +446,114 @@ def test_capsule_search_distance_derivative_is_exact():
     # The minimizer is known to 3.5e-9 of the segment, so the derivative
     # taken there is off by that times the mixed second derivative: ~1e-8.
     assert float((d_ad - d_fd)[outside].abs().max()) < 1e-7
+
+
+# -- the 3x3 contractions of soa/mat3.py: broadcast multiply-and-sum, held
+# against NumPy's products and against the einsum forms' derivatives --------
+
+_EINSUM = {
+    "mul": "ik...,kj...->ij...",
+    "mul_t": "ik...,jk...->ij...",
+    "t_mul": "ki...,kj...->ij...",
+    "mv": "ij...,j...->i...",
+    "tmv": "ji...,j...->i...",
+}
+# Instance axes of (the matrix, the second operand); size 1 where an operand
+# is shared, as the per-body constants R[..., None] are.
+_INSTANCE_AXES = {
+    "one_axis": ((7,), (7,)),
+    "two_axes": ((4, 5), (4, 5)),
+    "shared_matrix": ((4, 1), (4, 5)),
+    "shared_operand": ((1, 5), (4, 5)),
+}
+# Sums of three float64 products, in another order than NumPy's.
+RTOL_MAT3 = 1e-14
+
+
+def _numpy_product(fn, A, X):
+    """The product on the AoS layout (instances first), by np.matmul."""
+    A = np.moveaxis(A, (0, 1), (-2, -1))
+    if fn in ("t_mul", "tmv"):
+        A = np.swapaxes(A, -1, -2)
+    if fn in ("mv", "tmv"):
+        return np.moveaxis((A @ np.moveaxis(X, 0, -1)[..., None])[..., 0],
+                           -1, 0)
+    X = np.moveaxis(X, (0, 1), (-2, -1))
+    if fn == "mul_t":
+        X = np.swapaxes(X, -1, -2)
+    return np.moveaxis(A @ X, (-2, -1), (0, 1))
+
+
+@pytest.mark.parametrize("axes", sorted(_INSTANCE_AXES))
+@pytest.mark.parametrize("fn", sorted(_EINSUM))
+def test_mat3_contraction(fn, axes):
+    f = getattr(tmat3, fn)
+    ref = functools.partial(torch.einsum, _EINSUM[fn])
+    rng = np.random.default_rng(17)
+    ia, ix = _INSTANCE_AXES[axes]
+    lead = (3,) if fn in ("mv", "tmv") else (3, 3)
+
+    def draw(shape, k=()):
+        return torch.tensor(rng.standard_normal(k + shape))
+
+    A, X = draw((3, 3) + ia), draw(lead + ix)
+    out = f(A, X)
+    want = _numpy_product(fn, A.numpy(), X.numpy())
+    assert out.shape == want.shape
+    assert _rel(out, want) < RTOL_MAT3
+
+    dA, dX = draw((3, 3) + ia), draw(lead + ix)
+    for got, exp in zip(jvp(f, (A, X), (dA, dX)), jvp(ref, (A, X), (dA, dX))):
+        assert _rel(got, exp) < RTOL_MAT3
+    ct = draw(tuple(out.shape))
+    for got, exp in zip(vjp(f, A, X)[1](ct), vjp(ref, A, X)[1](ct)):
+        assert got.shape == exp.shape and _rel(got, exp) < RTOL_MAT3
+    As, Xs = draw((3, 3) + ia, (2,)), draw(lead + ix, (2,))
+    assert _rel(vmap(f)(As, Xs), vmap(ref)(As, Xs)) < RTOL_MAT3
+    # The partials' form: vmap over tangents of a jvp, one operand batched.
+    assert _rel(vmap(lambda t: jvp(f, (A, X), (dA, t))[1])(Xs),
+                vmap(lambda t: jvp(ref, (A, X), (dA, t))[1])(Xs)) < RTOL_MAT3
+
+
+class _TinyMatrixProducts(TorchDispatchMode):
+    """Records each matrix product whose matrices are all 4x4 or smaller."""
+
+    _OPS = {torch.ops.aten.mm: 0, torch.ops.aten.bmm: 0,
+            torch.ops.aten.addmm: 1, torch.ops.aten.baddbmm: 1}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        first = self._OPS.get(func.overloadpacket)
+        if first is not None:
+            dims = [d for m in args[first : first + 2] for d in m.shape[-2:]]
+            if max(dims) <= 4:
+                self.seen.append((str(func), [tuple(m.shape) for m in
+                                              args[first : first + 2]]))
+        return func(*args, **(kwargs or {}))
+
+
+# The mini cheetah: the spinner's nv = nq = 3 makes the partials' own
+# (nv, nv) x (nv, nq) products 3x3 too.
+@pytest.mark.parametrize("case", ["mini_cheetah"], indirect=True)
+def test_mat3_route_dispatches_no_tiny_matrix_products(case, monkeypatch):
+    qs = torch.tensor(case["qs"])
+
+    def physics():
+        with _TinyMatrixProducts() as rec:
+            parts = tpart.id_partials_batched(case["tm"], case["tprob"],
+                                              case["tc"], qs)
+            tau, _ = troll.generalized_forces(case["tm"], case["tprob"],
+                                              case["tc"], qs)
+        return (*parts, tau), rec.seen
+
+    out, seen = physics()
+    assert seen == []
+    for fn, spec in _EINSUM.items():
+        monkeypatch.setattr(tmat3, fn, functools.partial(torch.einsum, spec))
+    out_einsum, seen_einsum = physics()
+    assert seen_einsum  # the einsum forms dispatch them: the check can fail
+    for x, y in zip(out, out_einsum):
+        assert _rel(x, y) < 1e-13
