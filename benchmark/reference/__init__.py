@@ -30,13 +30,15 @@ class Reference:
     def tensor(self, x):
         return torch.as_tensor(x, device=self.device).to(self.dtype)
 
-    def iterate(self, q, q_init, v_init, q_nom, Delta) -> _solver.Iteration:
+    def iterate(self, q, q_init, v_init, q_nom, Delta,
+                cond_out=None) -> _solver.Iteration:
         """One trust-region iteration of S problems that differ in their
-        initial state and nominal; every argument leads with S."""
+        initial state and nominal; every argument leads with S.
+        ``cond_out`` as in ``solver.iterate``."""
         P = _mpc.batch(self.base, q_init, v_init, q_nom, self.device,
                        self.dtype)
         return _solver.iterate(self.model, self.solver, P, self.tensor(q),
-                               self.tensor(Delta))
+                               self.tensor(Delta), cond_out)
 
     def warm_guess(self, prev_q, elapsed, q0):
         return _mpc.warm_guess(self.tensor(prev_q), self.tensor(elapsed),

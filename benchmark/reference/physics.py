@@ -6,15 +6,39 @@ compliant contact's wrenches.  q is (nq,), v and a (nv,); batch with
 Inverse dynamics is written as the generalized force of the net body
 wrenches:
 
-    tau = J(q)^T [I wd + w x I w + r x m (a_com - g); m (a_com - g)]
+    tau = J(q)^T [I wd + w x I w + r x m (a_com - s g); m (a_com - s g)]
           + D v - J(q)^T w_contact
 
-with each body's world angular velocity w and origin velocity from a jvp
+with each link's gravity scale s (1, or 0 where gravity is off), each
+body's world angular velocity w and origin velocity from a jvp
 of the forward kinematics along qdot = N(q) v, its accelerations from a
 second jvp along (qdot, a), and J^T from a vjp of the velocity map.
 
-Contact, for each candidate pair: the signed distance phi and the witness
-points; f_n = sigma k log(1 + exp(-phi / sigma)) (the linear limit -k phi
+Contact, for each candidate pair: the signed distance phi, the normal
+from A to B and the witness points, by the pair's shapes:
+
+- sphere against sphere, box or capsule: the centre's nearest point of B
+  (of a capsule: the nearest point of its axis segment, pushed out by the
+  radius); inside a box, the face of the largest |p_i| - h_i, the first of
+  equals;
+- box against box: each box's 8 corners and 6 face centres against the
+  other, and the closest points of each of the 12 x 12 edge pairs; the
+  least phi wins, the first of equals;
+- capsule against capsule: the closest points of the two axis segments
+  (``_segments``: a clamped projection and one re-projection, exact for
+  segments that are not parallel); for parallel axes (|d1|^2 |d2|^2 -
+  (d1 . d2)^2 < 1e-12) it starts from A's first end (its centre less the
+  half axis), so where parallel axes overlap the witnesses are the point
+  of B's axis nearest that end and the point of A's axis nearest that;
+- capsule against box: the box's distance along the axis segment, least
+  at t* (``_capsule_vs_box``: bisection on the slope, then a Newton
+  correction that makes t's derivative exact: of the slope outside the
+  box, of the gap between two tied faces' depths where the axis runs
+  inside it), then sphere against box at that point, with the falling
+  face's normal at such a kink; where the minimiser is not unique, the one
+  nearest the axis's second end.
+
+Then f_n = sigma k log(1 + exp(-phi / sigma)) (the linear limit -k phi
 where the exponent passes 37) times the dissipation factor (1 - s, or
 (s - 2)^2 / 4 for 0 <= s < 2, or 0, with s = v_n / v_d), and friction
 -mu f_n v_t / sqrt(v_s^2 + |v_t|^2), applied equal and opposite at the
@@ -28,7 +52,8 @@ import numpy as np
 import torch
 from torch.func import jvp, vjp, vmap
 
-from reference.model import BOX, FIXED, FLOATING, PLANAR, REVOLUTE, SPHERE
+from reference.model import (BOX, CAPSULE, FIXED, FLOATING, PLANAR,
+                             PRISMATIC, REVOLUTE, SPHERE)
 
 EPS = 1e-12
 
@@ -77,6 +102,9 @@ def forward_kinematics(m, q):
         elif jt == REVOLUTE:
             R_j = m.R_pj[j] @ rodrigues(m.axis[j], q[qs])
             p_j = m.p_pj[j]
+        elif jt == PRISMATIC:
+            R_j = m.R_pj[j]
+            p_j = m.p_pj[j] + m.R_pj[j] @ (m.axis[j] * q[qs])
         elif jt == PLANAR:
             z = torch.zeros_like(q[qs])
             R_j = m.R_pj[j] @ rodrigues(m.axis[j], q[qs + 2])
@@ -102,8 +130,8 @@ def v_to_qdot(m, q, v):
         qs, vs = m.q_start[j], m.v_start[j]
         if jt == FLOATING:
             out += [quat_rate(q[qs:qs + 4]) @ v[vs:vs + 3], v[vs + 3:vs + 6]]
-        elif jt in (REVOLUTE, PLANAR):
-            out.append(v[vs:vs + (1 if jt == REVOLUTE else 3)])
+        elif jt in (REVOLUTE, PRISMATIC, PLANAR):
+            out.append(v[vs:vs + (3 if jt == PLANAR else 1)])
     return torch.cat(out)
 
 
@@ -121,9 +149,9 @@ def nplus(m, q):
             eye[vs + 3:vs + 6, qs + 4:qs + 7] = np.eye(3)
             rows = rows + torch.as_tensor(eye, dtype=q.dtype,
                                           device=q.device)
-        elif jt in (REVOLUTE, PLANAR):
+        elif jt in (REVOLUTE, PRISMATIC, PLANAR):
             e = np.zeros((m.nv, m.nq))
-            for i in range(1 if jt == REVOLUTE else 3):
+            for i in range(3 if jt == PLANAR else 1):
                 e[vs + i, qs + i] = 1.0
             rows = rows + torch.as_tensor(e, dtype=q.dtype, device=q.device)
     return rows
@@ -162,16 +190,30 @@ def _point_box(p, half):
     return phi, normal, closest
 
 
+def _point_capsule(p, size):
+    """(phi, outward normal, closest point) of a capsule-frame point: the
+    nearest point of the axis segment, z in [-half length, half length],
+    pushed out by the radius."""
+    zero = torch.zeros_like(p[2])
+    axis_pt = torch.stack([zero, zero, torch.minimum(torch.maximum(
+        p[2], -size[1]), size[1])])
+    dist = _norm(p - axis_pt)
+    normal = (p - axis_pt) / dist
+    return dist - size[0], normal, axis_pt + normal * size[0]
+
+
 def _sphere_vs(tb, size_b, R_b, p_b, center, radius):
-    """A sphere against a sphere or a box B: (phi, A->B normal, witness on
-    the sphere, witness on B), in world."""
+    """A sphere against a sphere, a box or a capsule B: (phi, A->B normal,
+    witness on the sphere, witness on B), in world."""
     c = R_b.T @ (center - p_b)
     if tb == SPHERE:
         dist = _norm(c)
         phi_pt, n_l = dist - size_b[0], c / dist
         cl = n_l * size_b[0]
-    else:
+    elif tb == BOX:
         phi_pt, n_l, cl = _point_box(c, size_b)
+    else:
+        phi_pt, n_l, cl = _point_capsule(c, size_b)
     n = -(R_b @ n_l)
     return phi_pt - radius, n, center + n * radius, R_b @ cl + p_b
 
@@ -250,6 +292,118 @@ def _box_vs_box(ha, R_a, p_a, hb, R_b, p_b):
                  for e, b in zip(edge, best))
 
 
+def _capsule_vs_capsule(sa, R_a, p_a, sb, R_b, p_b):
+    """The closest points of the two axis segments, each pushed out by its
+    capsule's radius."""
+    ha, hb = R_a[:, 2] * sa[1], R_b[:, 2] * sb[1]
+    x, y = _segments(p_a - ha, p_a + ha, p_b - hb, p_b + hb)
+    d = _norm(y - x)
+    n = (y - x) / d
+    return d - sa[0] - sb[0], n, x + n * sa[0], y - n * sb[0]
+
+
+BISECTIONS = 64  # halves [0, 1] past the spacing of doubles below 1
+
+
+def _box_slope(p, d, half):
+    """d/dt of the box distance of p + t d at t = 0 (the distance's
+    gradient, the outward normal, along d), and where the point is outside
+    the box the second derivative, else 0 (the distance is piecewise linear
+    inside)."""
+    phi, normal, _ = _point_box(p, half)
+    slope = normal @ d
+    out = torch.abs(p) - half
+    active = (out > 0).to(p.dtype)
+    curv = torch.where(torch.amax(out) > 0,
+                       (torch.sum(active * d * d) - slope * slope) / phi,
+                       torch.zeros_like(phi))
+    return slope, curv
+
+
+# The six faces of a box, each a signed axis, in a fixed order: +x, -x,
+# +y, -y, +z, -z.  A point's depth below face f is FACES[f] . p - h_k.
+_FACES = np.concatenate([np.eye(3), -np.eye(3)])[[0, 3, 1, 4, 2, 5]]
+# Faces whose depths at the minimiser lie within TIE x the axis's length of
+# the deepest's are tied there.  The bisection leaves t* within a few
+# roundings of the kink, where tied depths differ by about 1e-17 m.
+TIE = 1e-9
+
+
+def _capsule_vs_box(sc, R_c, p_c, hb, R_b, p_b):
+    """The capsule as the sphere of its radius at the point of its axis
+    segment a + t (b - a) where the box's distance phi(t) is least.  phi is
+    convex in t, so its slope rises: 64 bisections of [0, 1] on the slope's
+    sign, on detached inputs, give t* = the largest t with phi'(t) <= 0, to
+    rounding.  Then one Newton correction makes t's derivative exact (the
+    implicit function theorem): t = t* - (g(t*) - sg(g(t*))) / sg(g'(t*)),
+    whose value is t* and whose derivative is -(dg/dq) / g', where sg holds
+    its argument's value with no derivative, and g is
+
+    - outside the box, phi'(t) (phi is smooth there);
+    - inside the box, where phi is the deepest of the six faces' depths,
+      each linear in t, and t* a kink between them: the depth of the first
+      tied face (``TIE``; in ``_FACES``' order) that rises along the axis
+      less that of the first tied face that falls or stays level.  The
+      normal and the box's witness are then the falling face's, the face
+      on a's side of t*, whatever rounding makes the deepest at t*.  Where
+      a face stays level (the axis parallel to it), t* is the end of the
+      level stretch nearest b, and t follows that end.
+
+    Where t* is an end of the segment, or phi''(t*) = 0 outside (the axis
+    parallel to a face it projects inside: every t of a stretch is least,
+    and t* is the one nearest b), t is held at t*, constant."""
+    half = R_c[:, 2] * sc[1]
+    a = R_b.T @ (p_c - half - p_b)  # the axis's ends in the box's frame
+    d = R_b.T @ (2.0 * half)
+    a0, d0, h0 = a.detach(), d.detach(), hb.detach()
+    lo = torch.zeros_like(a0[0])
+    hi = torch.ones_like(lo)
+    for _ in range(BISECTIONS):
+        mid = 0.5 * (lo + hi)
+        rising = _box_slope(a0 + mid * d0, d0, h0)[0] > 0
+        lo, hi = torch.where(rising, lo, mid), torch.where(rising, mid, hi)
+    t0 = lo
+    interior = (t0 > 0) & (t0 < 1)
+    p0 = a0 + t0 * d0
+    inside = torch.amax(torch.abs(p0) - h0) <= 0
+    slope0, curv = _box_slope(p0, d0, h0)
+    slope = _box_slope(a + t0 * d, d, hb)[0]
+    smooth = interior & ~inside & (curv > 0)
+    # Inside: the tied faces at t*, the first falling (or level) and the
+    # first rising one.
+    faces = torch.as_tensor(_FACES, dtype=a.dtype, device=a.device)
+    depth0 = faces @ p0 - torch.abs(faces) @ h0
+    rate0 = faces @ d0
+    tie = TIE * torch.linalg.vector_norm(d0)
+    tied = depth0 >= torch.amax(depth0) - tie
+    falls, rises = tied & (rate0 <= tie), tied & (rate0 > tie)
+    order = torch.arange(6, device=a.device)
+
+    def first(mask):
+        return (order == torch.argmax(mask.to(a.dtype))).to(a.dtype)
+
+    fall, rise = first(falls), first(rises)
+    kink = interior & inside & torch.any(falls) & torch.any(rises)
+    gap = (rise - fall) @ (faces @ (a + t0 * d) - torch.abs(faces) @ hb)
+    gap0 = (rise - fall) @ depth0
+    one = torch.ones_like(curv)
+    t = t0 - torch.where(
+        smooth, (slope - slope0) / torch.where(smooth, curv, one),
+        torch.where(kink, (gap - gap0) / torch.where(
+            kink, (rise - fall) @ rate0, one), torch.zeros_like(curv)))
+    center = p_c - half + t * (2.0 * half)
+    out = _sphere_vs(BOX, hb, R_b, p_b, center, sc[0])
+    # At a kink, the falling face's depth, normal and witness.
+    face = fall @ faces
+    c = R_b.T @ (center - p_b)
+    on = torch.abs(face)
+    n = -(R_b @ face)
+    cl = torch.minimum(torch.maximum(c, -hb), hb) * (1 - on) + face * hb
+    at_kink = (face @ c - on @ hb - sc[0], n, center + n * sc[0],
+               R_b @ cl + p_b)
+    return tuple(torch.where(kink, k, o) for k, o in zip(at_kink, out))
+
+
 def signed_distance(ta, sa, R_a, p_a, tb, sb, R_b, p_b):
     if ta == SPHERE:
         return _sphere_vs(tb, sb, R_b, p_b, p_a, sa[0])
@@ -258,6 +412,13 @@ def signed_distance(ta, sa, R_a, p_a, tb, sb, R_b, p_b):
         return phi, -n, wb, wa
     if ta == BOX and tb == BOX:
         return _box_vs_box(sa, R_a, p_a, sb, R_b, p_b)
+    if ta == CAPSULE and tb == CAPSULE:
+        return _capsule_vs_capsule(sa, R_a, p_a, sb, R_b, p_b)
+    if ta == CAPSULE and tb == BOX:
+        return _capsule_vs_box(sa, R_a, p_a, sb, R_b, p_b)
+    if ta == BOX and tb == CAPSULE:
+        phi, n, wa, wb = _capsule_vs_box(sb, R_b, p_b, sa, R_a, p_a)
+        return phi, -n, wb, wa
     raise ValueError(f"pair ({ta}, {tb}) is not in the reference")
 
 
@@ -320,7 +481,7 @@ def inverse_dynamics(m, contact, q, v, a):
     a_com = (pdd + torch.linalg.cross(wd, r)
              + torch.linalg.cross(w, torch.linalg.cross(w, r)))
     mass = m.mass[:, None]
-    force = mass * a_com - mass * m.gravity
+    force = mass * a_com - mass * (m.grav_scale[:, None] * m.gravity)
     I_w = R @ m.inertia @ R.mT
     Iw = (I_w @ w[:, :, None])[..., 0]
     torque = ((I_w @ wd[:, :, None])[..., 0] + torch.linalg.cross(w, Iw)

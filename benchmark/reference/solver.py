@@ -167,9 +167,11 @@ class Iteration:
     accepted: torch.Tensor
 
 
-def iterate(m, solver, P, q, Delta) -> Iteration:
+def iterate(m, solver, P, q, Delta, cond_out=None) -> Iteration:
     """One trust-region iteration from q (S, T+1, nq) with radius Delta
-    (S,); ``solver`` is the configuration's solver values."""
+    (S,); ``solver`` is the configuration's solver values.  ``cond_out``,
+    a list, receives the 2-norm condition number of each problem's scaled
+    Hessian (S,): the factor by which rounding can move the step."""
     contact = {k: solver[k] for k in ("dissipation_velocity",
                                       "smoothing_factor",
                                       "friction_coefficient",
@@ -189,6 +191,9 @@ def iterate(m, solver, P, q, Delta) -> Iteration:
         D = torch.ones_like(g)
     Hs = D[:, :, None] * H * D[:, None, :]
     gs = D * g
+    if cond_out is not None:
+        ev = torch.linalg.eigvalsh(Hs).abs()
+        cond_out.append(ev.amax(dim=1) / ev.amin(dim=1))
     un = m.unactuated
     if solver["equality_constraints"] and un:
         rows = torch.tensor([t * m.nv + i for t in range(P.T) for i in un],

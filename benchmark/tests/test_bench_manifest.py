@@ -66,7 +66,7 @@ def test_cell_files_found_by_name(cell):
     assert c.traffic["kind"] in ("replan", "batch")
     assert set(c.limits) == ({"step_gap", "control_gap", "radius_gap"}
                              if c.traffic["kind"] == "replan"
-                             else {"step_gap", "cost_gap"})
+                             else {"step_gap_cond", "cost_gap"})
     names = {m.name for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2
     assert c.per_layer

@@ -12,6 +12,17 @@ output is judged:
   take, or took where the reference rejected it, reads about 1; where both
   rejected it the floor keeps two roundings of one warm start from
   reading as a step.
+* ``step_gap_cond`` (batch): each sampled scenario's ``step_gap`` over
+  cond(H) u, the condition number of the reference's scaled Hessian at the
+  call's start times float64's unit roundoff (2^-53): how far rounding
+  alone can move a step there, since a float64 solve of that system is
+  correct to about that much.  A scenario the perturbation puts on a stiff
+  contact can reach cond(H) 4e14 (the others 4e9 to 6e9), where two float64
+  implementations of one iteration (the reference on the CPU and on the
+  card, the port on the CPU and on the card) part by 2e-3 to 1e-2 of the
+  step; there a ``step_gap`` limit set from well-conditioned scenarios would
+  judge rounding, while a step the program did not take still reads
+  1 / (cond(H) u), over 20.
 * ``cost_gap`` (batch): |L_prog - L_ref| / |L_ref| of the cost at each
   call's start, the physics (inverse dynamics and contact) alone.
 * ``control_gap`` (replan): |u_prog - u_ref| / |u_ref| of the first
@@ -72,7 +83,8 @@ def check_batch(drv, ref, cell, seed):
     base = ref.base
     dq = tr.perturbation(seed, drv.batch, ref.model.nq, float(t["std"]))
     picks = [(c, r) for c in calls for r in rows]
-    worst = {"step_gap": 0.0, "cost_gap": 0.0}
+    worst = {"step_gap_cond": 0.0, "cost_gap": 0.0}
+    unit = torch.finfo(torch.float64).eps / 2
     for chunk in _chunks(picks):
         rs = [r for _, r in chunk]
         q_in = ref.tensor(torch.stack([
@@ -83,15 +95,17 @@ def check_batch(drv, ref, cell, seed):
                                          for c, r in chunk]))
         cost_prog = ref.tensor(torch.stack([drv.history[c][1][r]
                                             for c, r in chunk]))
+        cond = []
         it = ref.iterate(
             q_in, base["q_init"][None] + dq[rs],
             base["v_init"][None].repeat(len(rs), 0),
             base["q_nom"][None].repeat(len(rs), 0),
             torch.full((len(rs),), float(ref.solver["Delta0"]),
-                       dtype=torch.float64))
-        step = _step_gap(q_prog, it.q, q_in)
+                       dtype=torch.float64), cond)
+        step = _step_gap(q_prog, it.q, q_in) / (cond[0].double() * unit)
         cost = _gap(cost_prog[:, None], it.cost[:, None], it.cost.abs())
-        worst["step_gap"] = max(worst["step_gap"], float(step.max()))
+        worst["step_gap_cond"] = max(worst["step_gap_cond"],
+                                     float(step.max()))
         worst["cost_gap"] = max(worst["cost_gap"], float(cost.max()))
     return worst
 

@@ -16,8 +16,11 @@ A traffic mix is a JSON file of parameters (``traffic/<name>.json``); its
 * ``batch``: ``batch`` scenarios whose q_init and guess move by a seeded
   ``std`` N(0, 1) (``bench_torch.py``'s perturbation); chained
   ``solve_batch`` calls of ``max_iterations`` iterations with no
-  convergence test, each guessing the previous call's q, at most
-  ``queue_depth`` calls in flight.  Set-up makes ``warm_calls`` calls.
+  convergence test, each guessing the previous call's q.  Set-up makes
+  ``warm_calls`` calls, one at a time; the fastest of them after the
+  first (which captures) sets how many calls stay in flight: as many as
+  take ``queue_s`` seconds, so that the card stays fed while the host
+  stands still.
 
 Every input comes from ``--seed``: the same seed gives the same inputs.
 Each loop keeps what its window produced (references to the program's
@@ -186,7 +189,7 @@ class BatchLoop:
         self.loaded = prog.load(config, device)
         prob, q_guess = self.loaded.prob, self.loaded.q_guess
         self.batch = int(traffic["batch"])
-        self.depth = int(traffic["queue_depth"])
+        self.depth = 1
         self.params = self.loaded.params.replace(
             max_iterations=int(traffic["max_iterations"]),
             check_convergence=False)
@@ -200,9 +203,14 @@ class BatchLoop:
         self.solves_per_op = self.batch * int(traffic["max_iterations"])
         self.history = []
         self._events = []
+        call_s = []
         for _ in range(int(traffic["warm_calls"])):
+            t = time.perf_counter()
             self.step()
-        self.drain()
+            self.drain()
+            call_s.append(time.perf_counter() - t)
+        self.depth = max(1, round(float(traffic["queue_s"])
+                                  / min(call_s[1:] or call_s)))
         self.warm = len(self.history)
 
     @property
