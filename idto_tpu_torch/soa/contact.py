@@ -4,12 +4,14 @@ instance axis trailing (counterpart of ``idto_tpu/soa/contact.py``).
 Pair kernels: sphere vs point-queryable shape (sphere, box, capsule,
 cylinder, halfspace, convex hull), box vs box (14 candidate points each
 way plus 144 edge pairs), capsule vs capsule (closest points of the two
-axis segments), capsule vs box, cylinder, halfspace or hull (a 48-step
-ternary search along the capsule's axis, then the sphere query at the
-minimizer), and the generic pairs of box, cylinder and hull against each
-other or a halfspace (``soa/convex.py``).  Every pair but a halfspace
-against a halfspace has a kernel; ``supports_soa`` says whether a model's
-pair set is covered.
+axis segments), capsule vs box, cylinder, halfspace or hull (the point of
+the capsule's axis where the shape's distance is least, then the sphere
+query there: against a box a bisection on the distance's slope with one
+Newton correction that gives the point its exact derivative, against the
+others a 48-step ternary search), and the generic pairs of box, cylinder
+and hull against each other or a halfspace (``soa/convex.py``).  Every
+pair but a halfspace against a halfspace has a kernel; ``supports_soa``
+says whether a model's pair set is covered.
 
 Clamps are written as ``torch.minimum``/``torch.maximum`` against tensors
 because their derivative splits evenly at ties, as ``jnp.clip`` and
@@ -27,6 +29,7 @@ from idto_tpu_torch.models.model import GeomType, Model
 from idto_tpu_torch.soa import convex, mat3
 from idto_tpu_torch.soa.kinematics import body_velocities
 from idto_tpu_torch.utils.consts import const
+from idto_tpu_torch.utils.profiler import instrument
 
 _EPS = 1e-12
 
@@ -42,6 +45,14 @@ _POINT_SHAPES = (
 _CAPSULE_SEARCH_SHAPES = (GeomType.BOX, GeomType.HALFSPACE, GeomType.CYLINDER,
                           GeomType.CONVEX)
 _TERNARY_STEPS = 48
+# Bisections of [0, 1] along a capsule's axis against a box: past the
+# spacing of doubles below 1, so that a least point at an end is that end.
+_BISECTIONS = 64
+# A box's faces whose depths at the least point lie within _TIE x the
+# axis's length of the deepest's are tied there: the bisection leaves the
+# point within a few roundings of a kink, where tied depths differ by
+# about 1e-17 m.
+_TIE = 1e-9
 
 
 def pair_supported(ta, tb) -> bool:
@@ -316,13 +327,7 @@ def capsule_vs_capsule(params_a, R_a, p_a, params_b, R_b, p_b):
 
 def _point_shape_phi(shape_type, params, p):
     """Signed distance alone of shape-frame points p (3, ...) to a shape:
-    the objective of the search along a capsule's axis."""
-    if shape_type == GeomType.BOX:
-        q = torch.abs(p) - params[:3]
-        qmax = torch.maximum(torch.maximum(q[0], q[1]), q[2])
-        dist_out = mat3.norm(torch.maximum(q, _c(q, 0.0)))
-        return torch.where(qmax > 0.0, dist_out,
-                           torch.minimum(qmax, _c(qmax, 0.0)))
+    the objective of the ternary search along a capsule's axis."""
     if shape_type == GeomType.CYLINDER:
         return _point_cylinder(p, params[0], params[1])[0]
     if shape_type == GeomType.HALFSPACE:
@@ -332,15 +337,12 @@ def _point_shape_phi(shape_type, params, p):
     raise NotImplementedError(f"shape {shape_type}")
 
 
-def capsule_vs_shape(params_cap, R_c, p_c, shape_type, params_s, R_s, p_s):
-    """Capsule (A) vs a convex shape (B).  The signed distance to a convex
-    body is convex along the capsule's axis segment a + t (b - a), so a
-    ternary search of fixed length finds the minimizing t (to 1e-8 of the
-    segment after 48 steps), and the capsule is then the sphere of its
-    radius centred there.  The search runs on detached inputs: by the
-    envelope theorem the derivative of the minimum is the derivative at the
-    fixed minimizer, which the final sphere query supplies."""
-    radius, hl = params_cap[0], params_cap[1]
+def _ternary_search(params_cap, R_c, p_c, shape_type, params_s, R_s, p_s):
+    """The capsule's axis point where a cylinder's, a halfspace's or a
+    hull's distance is least, by a 48-step ternary search on detached
+    inputs (to 1e-8 of the segment; the distance is convex along the
+    segment a + t (b - a)): the centre (3, P, N), t held fixed."""
+    hl = params_cap[1]
     axis_w = R_c[:, 2]
     a_w = p_c - hl[None] * axis_w
     b_w = p_c + hl[None] * axis_w
@@ -358,9 +360,142 @@ def capsule_vs_shape(params_cap, R_c, p_c, shape_type, params_s, R_s, p_s):
         pick = phi[0] < phi[1]
         lo, hi = torch.where(pick, lo, m[0]), torch.where(pick, m[1], hi)
     t = 0.5 * (lo + hi)
-    center = a_w + t[None] * (b_w - a_w)
+    return a_w + t[None] * (b_w - a_w)
+
+
+def _rising(p, d, neg_d, half):
+    """Whether the box distance of box-frame points p + s d rises at s = 0:
+    the sign of the outward normal of ``_point_box`` along d, without its
+    length (sign(p_i) taken as 1 at p_i = 0)."""
+    q = torch.abs(p) - half
+    sd = torch.where(p < 0.0, neg_d, d)
+    out = mat3.dot(torch.clamp_min(q, 0.0), sd)
+    face = torch.gather(sd, 0, torch.argmax(q, dim=0, keepdim=True))[0]
+    return torch.where(torch.amax(q, dim=0) > 0.0, out, face) > 0.0
+
+
+def _box_slope(p, d, half):
+    """d phi / ds of the box distance of p + s d at s = 0 (the outward
+    normal along d), and where p is outside the box the second derivative,
+    else 0 (the distance is piecewise linear inside)."""
+    phi, normal, _ = _point_box(p, half)
+    slope = mat3.dot(normal, d)
+    out = torch.abs(p) - half
+    outside = torch.amax(out, dim=0) > 0.0
+    active = (out > 0.0).to(p.dtype)
+    curv = torch.where(
+        outside, (mat3.dot(active * d, d) - slope * slope)
+        / torch.where(outside, phi, _c(phi, 1.0)), _c(phi, 0.0))
+    return slope, curv
+
+
+def _six(x):
+    """(3, ...) -> (6, ...): the components along the faces +x, -x, +y,
+    -y, +z, -z."""
+    return torch.stack([x, -x], dim=1).reshape(6, *x.shape[1:])
+
+
+def _first(mask, dtype):
+    """One-hot (6, ...) of the first true entry of each column of mask, or
+    of the first entry where none is."""
+    first = torch.argmax(mask.to(dtype), dim=0)
+    return (const(np.arange(6).reshape(6, 1, 1), mask.device)
+            == first).to(dtype)
+
+
+def capsule_vs_box(params_cap, R_c, p_c, params_b, R_b, p_b):
+    """Capsule (A) vs box (B): the sphere of the capsule's radius at the
+    point of its axis segment a + t (b - a) where the box's distance phi(t)
+    is least.  phi is convex in t, so its slope rises: 64 bisections of
+    [0, 1] on the slope's sign, on detached inputs, give t* = the largest
+    t with phi'(t) <= 0, to rounding.  One Newton correction then gives t
+    its exact derivative (the implicit function theorem):
+    t = t* - (g - sg(g)) / sg(g'), whose value is t* and whose derivative
+    is -(dg/dq) / g', where sg holds its argument's value with no
+    derivative and g is
+
+    - outside the box, phi'(t) (phi is smooth there);
+    - inside it, where phi is the deepest of the six faces' depths, each
+      linear in t, and t* a kink between two: the depth of the first tied
+      face (``_TIE``, faces in the order +x, -x, +y, -y, +z, -z) that rises
+      along the axis less that of the first tied face that falls or stays
+      level.  phi, the normal and the box's witness are then the falling
+      face's, the face on a's side of t*, whatever rounding makes deepest
+      at t*.
+
+    Where t* is an end of the segment, or phi''(t*) = 0 outside (the axis
+    parallel to a face it projects inside: every t of a stretch is least,
+    and t* is the one nearest b), t is held at t*.  params (3, P, 1), R
+    (3, 3, P, N), p (3, P, N); returns (phi, nhat_AB, w_a, w_b)."""
+    radius = params_cap[0]
+    half = R_c[:, 2] * params_cap[1][None]  # the half-axis, world
+    hb = params_b[:3]
+    a = mat3.tmv(R_b, p_c - half - p_b)  # the axis's ends, box frame
+    d = mat3.tmv(R_b, 2.0 * half)
+    with instrument("physics.capsule_search"):
+        a0, d0, h0 = a.detach(), d.detach(), hb.detach()
+        neg_d0 = -d0
+        t0 = torch.zeros_like(a0[0])
+        for k in range(_BISECTIONS):
+            # t0 + 2^-(k+1) is the midpoint of [t0, t0 + 2^-k].
+            mid = t0 + 0.5 ** (k + 1)
+            t0 = torch.where(_rising(a0 + mid[None] * d0, d0, neg_d0, h0),
+                             t0, mid)
+        zero, one = _c(t0, 0.0), _c(t0, 1.0)
+        interior = (t0 > 0.0) & (t0 < 1.0)
+        p = a + t0[None] * d
+        slope, curv = _box_slope(p, d, hb)
+        curv = curv.detach()
+        inside = torch.amax(torch.abs(p.detach()) - h0, dim=0) <= 0.0
+        smooth = interior & ~inside & (curv > 0.0)
+        # Inside: the tied faces at t*, the first falling (or level) one
+        # and the first rising one.
+        depth = _six(p) - torch.repeat_interleave(hb, 2, dim=0)
+        depth0, rate0 = depth.detach(), _six(d0)
+        tie = _TIE * torch.sqrt(mat3.dot(d0, d0))
+        tied = depth0 >= torch.amax(depth0, dim=0) - tie
+        falls, rises = tied & (rate0 <= tie), tied & (rate0 > tie)
+        fall = _first(falls, p.dtype)
+        across = _first(rises, p.dtype) - fall
+        kink = interior & inside & torch.any(falls, dim=0) \
+            & torch.any(rises, dim=0)
+        gap = torch.sum(across * depth, dim=0)
+        t = t0 - torch.where(
+            smooth, (slope - slope.detach()) / torch.where(smooth, curv, one),
+            torch.where(kink, (gap - gap.detach()) / torch.where(
+                kink, torch.sum(across * rate0, dim=0), one), zero))
+    center = p_c - half + t[None] * (2.0 * half)
+    out = sphere_vs_point_shape(GeomType.BOX, params_b, R_b, p_b, center,
+                                radius)
+    # At a kink, the falling face's depth, normal and witness.
+    face = fall.reshape(3, 2, *fall.shape[1:])
+    face = face[:, 0] - face[:, 1]  # its signed axis, box frame
+    on = torch.abs(face)
+    c = mat3.tmv(R_b, center - p_b)
+    n = -mat3.mv(R_b, face)
+    cl = _clip(c, -hb, hb) * (1.0 - on) + face * hb
+    at_kink = (mat3.dot(face, c) - mat3.dot(on, hb) - radius, n,
+               center + n * radius[None], mat3.mv(R_b, cl) + p_b)
+    return tuple(torch.where(kink if x.ndim == kink.ndim else kink[None],
+                             k, x) for k, x in zip(at_kink, out))
+
+
+def capsule_vs_shape(params_cap, R_c, p_c, shape_type, params_s, R_s, p_s):
+    """Capsule (A) vs a convex shape (B): the capsule is the sphere of its
+    radius centred at the point of its axis segment where the shape's
+    distance is least.  Against a box that point carries its exact
+    derivative (``capsule_vs_box``).  Against a cylinder, a halfspace or a
+    hull the search runs on detached inputs and holds the point fixed under
+    differentiation: by the envelope theorem the derivative of the distance
+    is then exact, but those of the normal and the witnesses, which move
+    with the point, are not (nor, through them, the force's)."""
+    if shape_type == GeomType.BOX:
+        return capsule_vs_box(params_cap, R_c, p_c, params_s, R_s, p_s)
+    with instrument("physics.capsule_search"):
+        center = _ternary_search(params_cap, R_c, p_c, shape_type, params_s,
+                                 R_s, p_s)
     return sphere_vs_point_shape(shape_type, params_s, R_s, p_s, center,
-                                 radius)
+                                 params_cap[0])
 
 
 # -- pair dispatch + force law ----------------------------------------------
@@ -428,9 +563,15 @@ def contact_wrenches(model: Model, q, v, params):
     vs = params.stiction_velocity
     mu = params.friction_coefficient
 
-    # Group pairs by type so each group is one batched evaluation.
+    # Group pairs by type so each group is one batched evaluation.  A box
+    # against a capsule is taken as the capsule against the box (each body
+    # gets the same wrench), so that every capsule-box pair shares one
+    # search along the capsules' axes.
     groups: dict = {}
     for (ia, ib) in geoms.pairs:
+        if (geoms.types[ia], geoms.types[ib]) == (GeomType.BOX,
+                                                  GeomType.CAPSULE):
+            ia, ib = ib, ia
         groups.setdefault((geoms.types[ia], geoms.types[ib]), []).append(
             (ia, ib)
         )

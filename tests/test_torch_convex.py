@@ -29,6 +29,18 @@ Tolerances:
     3.5e-9 of the axis and their last steps are decided by rounding, so two
     implementations end 1e-8..1e-7 apart on the axis
     (``tests/test_torch_soa.py``, TOL_SEARCHED);
+  * a capsule against a box is held to the benchmark's plain reference
+    (``benchmark/reference/physics.py::_capsule_vs_box``, computed here at
+    the same poses) on every output to 1e-9 (reading 3e-16): the port
+    bisects on the distance's slope to rounding and, at a kink of the axis
+    through the box, takes the falling face, as that reference does.  It
+    is held to the golden as well: the distance to 1e-8 (reading 1.05e-9:
+    the JAX package's ternary search stops up to 3.5e-9 of the axis short,
+    and through the box the distance is not flat there), the normal and
+    witnesses to 1e-6 where the axis stays outside the box (reading
+    2.4e-8).  Where it goes through the box (14 and 15 of the 64 random
+    poses) two faces' depths tie at the minimizer, and the JAX search takes
+    whichever tied face its last midpoint lands on (7 poses 0.02-1.6 off);
   * forward derivatives along a random pose tangent at the separated poses
     (reference phi > 1e-3) whose reference spread is below 1e-10: 1e-7
     absolute, 1e-6 through the capsule's search -- the frozen minimizers
@@ -51,6 +63,7 @@ from idto_tpu_torch.models.mesh import convex_hull_vertices
 from idto_tpu_torch.models.model import GeomType
 from idto_tpu_torch.models.rotations import rpy_to_rot_np
 from idto_tpu_torch.soa import contact as tcon
+import torch_bench  # noqa: F401  (puts benchmark/ on sys.path)
 
 torch.set_num_threads(1)
 
@@ -59,6 +72,7 @@ _GOLDEN = os.path.join(os.path.dirname(os.path.dirname(
 N_RANDOM = 64
 TOL = 1e-9
 TOL_SEARCHED = 1e-6
+TOL_PHI_CAPSULE_BOX = 1e-8
 TOL_JVP = 1e-7
 TOL_JVP_SEARCHED = 1e-6
 SEPARATED = 1e-3
@@ -207,6 +221,24 @@ def _searched(ta, tb):
         {ta, tb} <= {G.CAPSULE, G.SPHERE, G.HALFSPACE})
 
 
+def _reference(ta, tb, case):
+    """(phi, n, wa, wb) of the plain reference at a capsule-box pair's
+    poses, as numpy."""
+    from torch.func import vmap
+
+    from reference import model as rmodel
+    from reference import physics
+
+    def t(key):
+        return torch.tensor(case[key])
+
+    out = vmap(lambda sa, Ra, xa, sb, Rb, xb: physics.signed_distance(
+        getattr(rmodel, ta.name), sa, Ra, xa, getattr(rmodel, tb.name), sb,
+        Rb, xb))(*(t(k) for k in ("prm_a", "R_a", "p_a", "prm_b", "R_b",
+                                  "p_b")))
+    return [x.numpy() for x in out]
+
+
 @pytest.fixture(scope="module")
 def golden():
     return np.load(_GOLDEN)
@@ -228,8 +260,18 @@ def test_pair_matches_jax_signed_distance(golden, pair):
     spread = [golden[f"{k}_{x}_spread"] for x in names]
     got = [x.numpy() for x in _port(ta, tb, case)]
     tol = [TOL] + [TOL_SEARCHED if _searched(ta, tb) else TOL] * 3
+    if {ta, tb} == {G.CAPSULE, G.BOX}:
+        for name, x, r in zip(names, got, _reference(ta, tb, case)):
+            assert np.abs(x - r).max() <= TOL, name
+        tol[0] = TOL_PHI_CAPSULE_BOX
+        radius = case["prm_a" if ta == G.CAPSULE else "prm_b"][:, 0]
+        outside = ref[0] + radius >= 0
+        assert outside.sum() >= len(outside) * 3 // 4
     for name, x, r, sp, t in zip(names, got, ref, spread, tol):
         err = np.abs(x - r).reshape(len(r), -1).max(axis=1)
+        if name != "phi" and {ta, tb} == {G.CAPSULE, G.BOX}:
+            err = err[outside]
+            sp = sp[outside]
         assert (err <= t + 2.0 * sp).all(), (name, err.max())
     # The poses whose reference moves by more than the tolerance under the
     # probes (its answer decided by rounding) are few.

@@ -6,11 +6,14 @@ The goldens ``goldens/torch_fleet_*.npz`` come from ``python
 scripts/make_torch_goldens.py fleet`` (``idto_tpu``'s ``solve_batch``: the
 batch-native SoA solve, and for punyo, whose capsule pairs the JAX SoA layer
 lacks, the vmapped AoS solve), with the q guesses stored in the file.
+Through scan-Thomas punyo is held to the benchmark's plain reference
+(``benchmark/reference/``) from those guesses instead: the AoS solve
+holds its capsule-box search's point fixed under differentiation, the
+port gives it its exact derivative.
 
 Tolerances.  Through scan-Thomas, the YAML solver: 1e-7 on q, 1e-6 on cost,
 merit and h_norm: two chained iterations of the same algorithm on Hessians
-of condition up to ~1e10 (scaled), and punyo's capsule search ends 1e-8
-apart on the axis between the packages (tests/test_torch_soa.py).
+of condition up to ~1e10 (scaled).
 
 Through CYCLIC_REDUCTION, the route the card's kernel serves (here its plain
 version), the same goldens are held loosely.  Cyclic reduction without
@@ -32,6 +35,7 @@ from idto_tpu_torch.examples.registry import example_names, load_example
 from idto_tpu_torch.optimizer.problem import LinearSolverType
 from idto_tpu_torch.parallel.batching import broadcast_problem, solve_batch
 from idto_tpu_torch.soa.contact import supports_soa
+from torch_bench import punyo_config, punyo_contact
 
 # One intra-op thread: these tensors are tiny, and several test workers with
 # a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
@@ -84,12 +88,66 @@ def test_example_has_its_yaml_shape(case):
     assert params.linear_solver == LinearSolverType.PENTA_LU
 
 
+def _reference_iterations(config, contact, qg, iterations):
+    """Punyo's iterations by the benchmark's plain reference
+    (``benchmark/reference/``, from the punyo configuration ``config``
+    and its ``contact`` parameters) from the guesses ``qg`` (B, T+1, nq):
+    a dict of the golden's keys, the per-iteration ones (B, iterations)."""
+    from reference import Reference
+    from reference import mpc as rmpc
+    from reference import solver as rsolver
+
+    ref = Reference(config, "cpu")
+    b, B = ref.base, qg.shape[0]
+
+    def rows(x):
+        return ref.tensor(x)[None].expand(B, *x.shape)
+
+    q_init, v_init, q_nom = rows(b["q_init"]), rows(b["v_init"]), rows(
+        b["q_nom"])
+    q = ref.tensor(qg)
+    tau = rsolver.forces(ref.model, contact, rmpc.batch(
+        b, q_init, v_init, q_nom, "cpu", torch.float64), q)
+    Delta = torch.full((B,), float(ref.solver["Delta0"]), dtype=torch.float64)
+    out = {k: [] for k in ("cost", "delta", "rho", "h_norm")}
+    for _ in range(iterations):
+        out["delta"].append(Delta)
+        out["h_norm"].append(torch.linalg.vector_norm(
+            tau[:, :, ref.model.unactuated].flatten(1), dim=1))
+        it = ref.iterate(q, q_init, v_init, q_nom, Delta)
+        out["cost"].append(it.cost)
+        out["rho"].append(it.rho)
+        q, tau, Delta = it.q, it.tau, it.Delta
+    out = {k: torch.stack(v, dim=1).numpy() for k, v in out.items()}
+    out.update(q=q.numpy(), tau=tau.numpy())
+    return out
+
+
 def test_two_iterations_match_the_jax_golden(case):
+    """Two iterations against the JAX golden; punyo's against the plain
+    reference's two iterations from the golden's guesses instead: the
+    golden's vmapped AoS solve holds the capsule-box search's point fixed
+    under differentiation, which the port no longer does (see
+    tests/test_torch_soa.py); its q reads 7.7e-8 and its merit 1.9e-6 off
+    the port's.  The same limits (punyo's readings against the reference:
+    4.4e-16 on q, 1.4e-15 on tau, 8.9e-17 on cost, 1.5e-16 on h_norm, rho
+    1.7e-15 apart).  The plain reference returns no merit: that key is
+    held for the other examples only."""
     ref = case["ref"]
     sol, stats, _ = solve_batch(case["model"], case["probs"], case["params"],
                                 case["qg"])
     assert np.array_equal(stats.num_iters.numpy(), ref["num_iters"])
     assert np.array_equal(stats.solver_flag.numpy(), ref["solver_flag"])
+    if case["name"] == "punyo":
+        ref = _reference_iterations(punyo_config(), punyo_contact(), case["qg"],
+                                    int(case["params"].max_iterations))
+        assert _rel(sol.q, ref["q"]) < RTOL_Q
+        assert _rel(sol.tau, ref["tau"]) < 1e2 * RTOL_Q
+        for key in ("cost", "h_norm", "delta"):
+            assert _rel(getattr(stats, key), ref[key]) < RTOL_COST, key
+        assert np.abs(stats.rho.numpy() - ref["rho"]).max() < 1e-5
+        assert bool((stats.cost[:, -1] <= stats.cost[:, 0]).all())
+        return
     assert _rel(sol.q, ref["q"]) < RTOL_Q
     assert _rel(sol.tau, ref["tau"]) < 1e2 * RTOL_Q
     for key in ("cost", "merit", "h_norm", "delta"):

@@ -41,6 +41,7 @@ from idto_tpu_torch.soa import kinematics as tkin
 from idto_tpu_torch.soa import mat3 as tmat3
 from idto_tpu_torch.soa import partials as tpart
 from idto_tpu_torch.soa import rollout as troll
+from torch_bench import punyo_config, punyo_contact
 
 # One intra-op thread: these tensors are tiny, and several test workers with
 # a thread pool each oversubscribe the cores (a solve is then 5-10x slower).
@@ -194,26 +195,40 @@ def test_partials(case):
 
 
 # -- capsule pairs and punyo: the JAX SoA layer has no capsule pairs, so the
-# oracle is the AoS distance and force law -----------------------------------
+# oracle is the AoS distance and force law, except for a capsule against a
+# box: there the JAX package holds its search's point fixed under
+# differentiation, and the oracle is the benchmark's plain reference
+# (``benchmark/reference/physics.py``), which finds the point by the same
+# bisection, tie rules and Newton correction ---------------------------------
 
 N_POSES = 300
 # Distances, normals and witnesses of one pair: the same float64 expressions
-# on both sides, the 48 search steps included.
+# on both sides, the search included.
 RTOL_PAIR = 1e-10
-# Normal and witnesses of a pair that goes through the search along the
-# capsule's axis.  48 steps resolve the minimizer to (2/3)^48 = 3.5e-9 of the
-# segment, and over the last steps the two distances compared differ by
-# less than rounding, so two implementations of the same arithmetic (XLA
-# contracts multiply-adds, PyTorch does not) end 1e-8..1e-7 apart on the
-# axis; the distance, flat there, still agrees to 1e-10.  With the axis
-# parallel to a face the minimizer is a whole interval and the witnesses
-# are not unique: those poses are held on distance and normal alone.
+# Normal and witnesses of a capsule against a cylinder, through the 48-step
+# ternary search along the capsule's axis on both sides.  48 steps resolve
+# the minimizer to (2/3)^48 = 3.5e-9 of the segment, and over the last steps
+# the two distances compared differ by less than rounding, so two
+# implementations of the same arithmetic (XLA contracts multiply-adds,
+# PyTorch does not) end 1e-8..1e-7 apart on the axis; the distance, flat
+# there, still agrees to 1e-10.  With the axis parallel to a face the
+# minimizer is a whole interval and the witnesses are not unique: those
+# poses are held on distance and normal alone.
 TOL_SEARCHED = 1e-6
 N_PARALLEL = 40  # the first poses of _pair_poses
 _CLOSED_FORM_PAIRS = ("capsule-capsule", "capsule-halfspace")
+# Held to the plain reference: the same bisection, to rounding on both
+# sides, so every output to RTOL_PAIR, the parallel poses' too.  Against
+# the JAX package's ternary search, which stops up to 3.5e-9 of the axis
+# short of the minimizer, the distance is TOL_PHI_SEARCHED apart (reading
+# 1.06e-9: through the box it is not flat at the minimizer), the normal
+# and witnesses TOL_SEARCHED (readings 9.5e-8 and 3.9e-8).
+_REFERENCE_PAIRS = ("box-capsule", "capsule-box")
+TOL_PHI_SEARCHED = 1e-8
 # Wrenches and step_tau of punyo sum 36 pairs through FK of 21 coordinates.
-# The searched pairs' witnesses differ by ~1e-8 between the packages
-# (TOL_SEARCHED below), and with them the moment arms: 1.3e-9 on the torques.
+# The JAX package's ternary search leaves its capsule-box witnesses ~1e-8
+# off the port's bisection (TOL_SEARCHED), and with them the moment arms:
+# 1.3e-9 on the torques.
 RTOL_PUNYO = 1e-8
 # Forward-mode derivatives against central differences with a step of 1e-6:
 # truncation ~1e-12 and rounding ~1e-16 / 1e-6, relative to the largest
@@ -262,11 +277,41 @@ def _pair_poses(rng, prm_a, prm_b):
     return R_a, p_a, R_b, p_b
 
 
+def _reference_pair(ta, prm_a, R_a, p_a, tb, prm_b, R_b, p_b):
+    """(phi (N,), normal, w_a, w_b (N, 3)) of the plain reference's
+    ``signed_distance``, vmapped over poses R (N, 3, 3), p (N, 3); types
+    by name, params (3,)."""
+    from reference import model as rmodel
+    from reference import physics
+
+    return vmap(lambda Ra, xa, Rb, xb: physics.signed_distance(
+        getattr(rmodel, ta), prm_a, Ra, xa, getattr(rmodel, tb), prm_b, Rb,
+        xb))(R_a, p_a, R_b, p_b)
+
+
+def _port_pair(ta, prm_a, R_a, p_a, tb, prm_b, R_b, p_b):
+    """The same through the port's ``_pair_distance``, in the same
+    layout."""
+    from idto_tpu_torch.models.model import GeomType as TGeom
+
+    out = tcon._pair_distance(
+        TGeom[ta], prm_a[:, None, None], R_a.permute(1, 2, 0)[:, :, None],
+        p_a.T[:, None], TGeom[tb], prm_b[:, None, None],
+        R_b.permute(1, 2, 0)[:, :, None], p_b.T[:, None])
+    return (out[0][0],) + tuple(x[:, 0].T for x in out[1:])
+
+
 @pytest.mark.parametrize("pair", sorted(_CAPSULE_PAIRS))
 def test_capsule_pairs_match_aos_distance(pair):
+    """Each capsule pair against the JAX package's AoS ``signed_distance``;
+    a capsule against a box against the plain reference as well (see
+    above), to RTOL_PAIR on every output and pose, and to the JAX package
+    as the two searches allow: the distance to TOL_PHI_SEARCHED, the normal
+    and witnesses to TOL_SEARCHED where the capsule's axis stays outside
+    the box (through it two faces' depths tie at the minimizer, and the
+    JAX search takes whichever its last midpoint lands on)."""
     from idto_tpu.geometry.distance import signed_distance
     from idto_tpu.models.model import GeomType as JGeom
-    from idto_tpu_torch.models.model import GeomType as TGeom
 
     ta, prm_a, tb, prm_b = _CAPSULE_PAIRS[pair]
     rng = np.random.default_rng(sorted(_CAPSULE_PAIRS).index(pair))
@@ -275,36 +320,160 @@ def test_capsule_pairs_match_aos_distance(pair):
     pa3[: len(prm_a)] = prm_a
     pb3 = np.zeros(3)
     pb3[: len(prm_b)] = prm_b
+    poses = [torch.tensor(x) for x in (R_a, p_a, R_b, p_b)]
     ref = jax.jit(jax.vmap(
         lambda Ra, xa, Rb, xb: signed_distance(
             JGeom[ta], jnp.asarray(pa3), Ra, xa,
             JGeom[tb], jnp.asarray(pb3), Rb, xb)
     ))(*(jnp.asarray(x) for x in (R_a, p_a, R_b, p_b)))
-
-    def soa_R(R):  # (N, 3, 3) -> (3, 3, 1, N)
-        return torch.tensor(R).permute(1, 2, 0)[:, :, None]
-
-    def soa_p(p):  # (N, 3) -> (3, 1, N)
-        return torch.tensor(p).T[:, None]
-
-    out = tcon._pair_distance(
-        TGeom[ta], torch.tensor(pa3)[:, None, None], soa_R(R_a), soa_p(p_a),
-        TGeom[tb], torch.tensor(pb3)[:, None, None], soa_R(R_b), soa_p(p_b))
+    out = _port_pair(ta, torch.tensor(pa3), poses[0], poses[1],
+                     tb, torch.tensor(pb3), poses[2], poses[3])
     phi, nhat, wa, wb = (np.asarray(x) for x in out)
     phi_j, n_j, wa_j, wb_j = (np.asarray(x) for x in ref)
     assert (phi_j < 0).sum() > 20 and (phi_j > 0).sum() > 20
-    assert np.abs(phi[0] - phi_j).max() < RTOL_PAIR
-    errs = [np.abs(x_t[:, 0].T - x_j).max(axis=1)
+    held = np.ones(N_POSES, dtype=bool)
+    if pair in _REFERENCE_PAIRS:
+        plain = _reference_pair(ta, torch.tensor(pa3), poses[0], poses[1],
+                                tb, torch.tensor(pb3), poses[2], poses[3])
+        for x_t, x_r in zip((phi, nhat, wa, wb), plain):
+            assert np.abs(x_t - x_r.numpy()).max() < RTOL_PAIR
+        assert np.abs(phi - phi_j).max() < TOL_PHI_SEARCHED
+        held = phi_j + (pa3 if ta == "CAPSULE" else pb3)[0] >= 0
+        assert held.sum() > N_POSES // 2
+    else:
+        assert np.abs(phi - phi_j).max() < RTOL_PAIR
+    errs = [np.abs(x_t - x_j).max(axis=1)[held]
             for x_t, x_j in ((nhat, n_j), (wa, wa_j), (wb, wb_j))]
     if pair in _CLOSED_FORM_PAIRS:
         assert max(e.max() for e in errs) < RTOL_PAIR
     else:
         assert errs[0].max() < TOL_SEARCHED
-        unique = slice(N_PARALLEL, None)
+        unique = np.arange(N_POSES)[held] >= N_PARALLEL
         assert max(e[unique].max() for e in errs[1:]) < TOL_SEARCHED
     # Everywhere, the port's witnesses are phi apart along its normal.
     # (guarded norms put sqrt(1e-12) into the cylinder's distance).
-    assert np.abs((wb - wa) - phi * nhat).max() < 2e-6
+    assert np.abs((wb - wa) - phi[:, None] * nhat).max() < 2e-6
+
+
+# A capsule of radius 0.05 and half length 0.25 against a box of
+# half-extents (0.3, 0.2, 0.1) at the origin, by families of poses: the
+# axis outside the box (phi smooth along it, least inside the segment or
+# at an end), the axis through the box (least at a kink between two faces'
+# depths), and the axis parallel to a face, over it and past an edge
+# (every t of a stretch least: t* the one nearest the axis's second end,
+# held there).  Parallel poses are exact in the box's frame: the box on
+# the world axes, the capsule's axis along +-x or +-y.
+_CAPSULE = (0.05, 0.25, 0.0)
+_BOX = (0.3, 0.2, 0.1)
+_FAMILIES = ("outside", "through", "parallel")
+
+
+def _family_poses(family, n=96):
+    """(R_c (n, 3, 3), p_c (n, 3), R_b, p_b) of a family, seeded."""
+    rng = np.random.default_rng(_FAMILIES.index(family) + 40)
+    R_b = np.broadcast_to(np.eye(3), (n, 3, 3)).copy()
+    p_b = np.zeros((n, 3))
+    if family == "parallel":
+        # The capsule's z axis onto +-x or +-y, exactly.
+        perms = [np.array([[0.0, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, 0.0]])
+                 for s in (1.0, -1.0)]
+        perms += [np.array([[1.0, 0.0, 0.0], [0.0, 0.0, -s], [0.0, s, 0.0]])
+                  for s in (1.0, -1.0)]
+        R_c = np.stack([perms[i] for i in rng.integers(0, 4, n)])
+        axis = R_c[:, :, 2]
+        # Over the top face, the axis's middle near the edge it points to.
+        along = np.abs(axis) @ np.array(_BOX) + rng.uniform(-0.2, 0.2, n)
+        p_c = axis * along[:, None]
+        p_c[:, 2] = _BOX[2] + rng.uniform(0.01, 0.1, n)
+        return R_c, p_c, R_b, p_b
+    R_c = _random_rotations(rng, n)
+    if family == "outside":
+        p_c = rng.uniform(-0.6, 0.6, (n, 3))
+    else:
+        p_c = rng.uniform(-0.5, 0.5, (n, 3)) * np.array(_BOX)
+    return R_c, p_c, R_b, p_b
+
+
+def _capsule_box_of(poses):
+    """phi, normal and witnesses of the port and of the reference as
+    functions of a pose tangent x (n, 6): a turn of the capsule by
+    expm(skew(x[:, :3])) and a move by x[:, 3:]."""
+    R_c, p_c, R_b, p_b = (torch.tensor(x) for x in poses)
+    prm_c = torch.tensor(_CAPSULE, dtype=torch.float64)
+    prm_b = torch.tensor(_BOX, dtype=torch.float64)
+
+    def posed(x):
+        w = x[:, :3]
+        z = torch.zeros_like(w[:, 0])
+        W = torch.stack([torch.stack([z, -w[:, 2], w[:, 1]], -1),
+                         torch.stack([w[:, 2], z, -w[:, 0]], -1),
+                         torch.stack([-w[:, 1], w[:, 0], z], -1)], -2)
+        return torch.linalg.matrix_exp(W) @ R_c, p_c + x[:, 3:]
+
+    def cat(out):
+        return torch.cat([out[0][:, None]] + list(out[1:]), dim=1)
+
+    def port(x):
+        return cat(_port_pair("CAPSULE", prm_c, *posed(x), "BOX", prm_b,
+                              R_b, p_b))
+
+    def ref(x):
+        return cat(_reference_pair("CAPSULE", prm_c, *posed(x), "BOX",
+                                   prm_b, R_b, p_b))
+
+    return port, ref
+
+
+@pytest.mark.parametrize("family", _FAMILIES)
+def test_capsule_box_matches_the_plain_reference_with_derivatives(family):
+    """phi, the normal and both witnesses of ``capsule_vs_shape`` against
+    the plain reference's ``_capsule_vs_box``, with their forward-mode
+    derivatives along a random pose tangent of each pose: the same t*, the
+    same tie rules and the same derivative of t (the Newton correction)."""
+    poses = _family_poses(family)
+    port, ref = _capsule_box_of(poses)
+    n = poses[0].shape[0]
+    x0 = torch.zeros((n, 6), dtype=torch.float64)
+    tangent = torch.tensor(np.random.default_rng(7).standard_normal((n, 6)))
+    got, d_got = jvp(port, (x0,), (tangent,))
+    want, d_want = jvp(ref, (x0,), (tangent,))
+    r = _CAPSULE[0]
+    inside = want[:, 0] + r < 0  # the axis's least point inside the box
+    if family == "parallel":
+        assert not bool(inside.any())
+    else:
+        assert int((inside == (family == "through")).sum()) > 3 * n // 4
+    if family == "parallel":
+        # The axis's second end or the edge it passes, at the top face.
+        assert bool(((got[:, 7:10] - want[:, 7:10]).abs() < 1e-15).all())
+    assert float((got - want).abs().max()) < RTOL_PAIR
+    scale = max(1.0, float(d_want.abs().max()))
+    assert float((d_got - d_want).abs().max()) < RTOL_PAIR * scale
+
+
+@pytest.mark.parametrize("family", ("outside", "through"))
+def test_capsule_box_derivatives_match_central_differences(family):
+    """The same derivatives against central differences of the port's own
+    phi, normal and witnesses along each pose's tangent, away from ties:
+    a pose whose differences at two step sizes disagree (the step crosses
+    a change of face, of kink or of end) is left out, and those are few."""
+    poses = _family_poses(family)
+    port, _ = _capsule_box_of(poses)
+    n = poses[0].shape[0]
+    x0 = torch.zeros((n, 6), dtype=torch.float64)
+    tangent = torch.tensor(np.random.default_rng(8).standard_normal((n, 6)))
+    d_ad = jvp(port, (x0,), (tangent,))[1]
+
+    def cd(eps):
+        return (port(x0 + eps * tangent) - port(x0 - eps * tangent)) / (
+            2 * eps)
+
+    fd, fd_half = cd(1e-6), cd(5e-7)
+    smooth = (fd - fd_half).abs().amax(dim=1) < 1e-7
+    assert int(smooth.sum()) >= n - n // 16
+    assert float(d_ad.abs().max()) > 0.5
+    assert float((d_ad - fd)[smooth].abs().max()) < TOL_FD * float(
+        d_ad.abs().max())
 
 
 def _punyo_inputs():
@@ -345,25 +514,7 @@ def test_punyo_wrenches_and_step_tau_match_aos(punyo):
     assert _rel(tau_t.T, ref["tau"]) < RTOL_PUNYO
 
 
-def test_punyo_partials_match_central_differences(punyo):
-    """dtau/dq of step_tau, through the capsule pairs, against central
-    differences of the port's own step_tau.
-
-    The search's minimizer is held fixed under differentiation (as the
-    reference's stop_gradient holds it).  By the envelope theorem that
-    leaves the derivative of the distance exact, but not that of the
-    witness points and the normal, which move with the minimizer: at the
-    YAML smoothing (0.01 m) punyo's forearm capsules lie 3-14 mm above the
-    ground box, those pairs carry force, and dtau/dq differs from central
-    differences by up to 1.0 on entries of size 1 (in both packages: the
-    port's derivative equals ``jacfwd`` of the reference's AoS step_tau to
-    4e-11 there).  With the smoothing at 0.1 mm the ground pairs carry no
-    force (exp(-30)), the arm-ball, arm-arm and ball-ground contacts stay
-    active, and the derivative must be the exact one."""
-    import dataclasses
-
-    tm = punyo["tm"]
-    tc = dataclasses.replace(punyo["tc"], smoothing_factor=1e-4)
+def _assert_dtau_dq_is_central_differences(tm, tc, punyo):
     q, v, a = (torch.tensor(punyo[k]) for k in ("q", "v", "a"))
 
     def f(qq):
@@ -380,41 +531,68 @@ def test_punyo_partials_match_central_differences(punyo):
             Gq.abs().max()), j
 
 
+def test_punyo_partials_match_central_differences(punyo):
+    """dtau/dq of step_tau, through the capsule pairs, against central
+    differences of the port's own step_tau, with the smoothing at 0.1 mm:
+    the ground pairs carry no force (exp(-30)) and the arm-ball, arm-arm
+    and ball-ground contacts stay active."""
+    import dataclasses
+
+    _assert_dtau_dq_is_central_differences(
+        punyo["tm"], dataclasses.replace(punyo["tc"], smoothing_factor=1e-4),
+        punyo)
+
+
+def test_punyo_partials_match_central_differences_at_the_yaml_smoothing(
+        punyo):
+    """The same at the YAML's smoothing (0.01 m), the configuration the
+    solver runs: the forearm capsules lie 3-14 mm above the ground box and
+    carry force there, so the derivative of the capsule-box search's point
+    counts (a point held fixed was up to 1.0 off on entries of size 1).
+    None of the six states puts a capsule's axis on a tie of two faces."""
+    _assert_dtau_dq_is_central_differences(punyo["tm"], punyo["tc"], punyo)
+
+
 def test_punyo_partials_match_jacfwd_of_the_aos_reference(punyo):
     """dtau/dq at the YAML contact parameters, the configuration the solver
-    runs, where central differences do not apply (see above): the port's
-    forward-mode rows against ``jacfwd`` of the reference's AoS ``step_tau``
-    on the same six states (goldens/torch_partials_punyo.npz, from
-    ``scripts/make_torch_goldens.py partials``).  Both hold the search's
-    minimizer fixed, so the same expressions are differentiated; the
-    minimizers themselves end ~1e-8 apart (TOL_SEARCHED), which shows as
-    3.6e-11 of the largest entry: held to RTOL_PARTIALS."""
-    ref = np.load(os.path.join(_GOLDENS, "torch_partials_punyo.npz"))
-    tm, tc = punyo["tm"], punyo["tc"]
+    runs: the port's forward-mode rows against ``jacfwd`` of the plain
+    reference's inverse dynamics with contact (``benchmark/reference/``,
+    the punyo configuration's model from its URDF copy) on the six states
+    of goldens/torch_partials_punyo.npz.  That golden's ``jacfwd`` of the
+    JAX package's AoS step_tau holds the capsule-box search's point fixed
+    under differentiation, 0.2-1.0 off the exact derivative on these
+    states, so the plain reference, which gives the point its exact
+    derivative, is the oracle.  The port's model is its own registry's, as
+    the benchmark builds it (the JAX model's converted constants move FK
+    by 6e-9); 1e-16 of the largest entry is read, held to
+    RTOL_PARTIALS."""
+    from torch.func import jacfwd
+
+    from idto_tpu_torch.examples.registry import load_example
+    from reference import Reference, physics
+
+    golden = np.load(os.path.join(_GOLDENS, "torch_partials_punyo.npz"))
     for key in ("q", "v", "a"):
-        assert np.array_equal(ref[key].T, punyo[key]), key
+        assert np.array_equal(golden[key].T, punyo[key]), key
+    ref = Reference(punyo_config(), "cpu")
+    tm, _, _, params, _ = load_example("punyo", device="cpu")
     q, v, a = (torch.tensor(punyo[k]) for k in ("q", "v", "a"))
-    Gq = tpart._jac_rows(lambda qq: tcon.step_tau(tm, tc, qq, v, a), q,
-                         tm.nq)  # (nq, nv, n)
-    want = ref["dtau_dq"]  # (n, nv, nq)
+    Gq = tpart._jac_rows(lambda qq: tcon.step_tau(tm, params.contact, qq, v,
+                                                  a), q, tm.nq)  # (nq, nv, n)
+    want = torch.stack([jacfwd(lambda x: physics.inverse_dynamics(
+        ref.model, punyo_contact(), x, v[:, i], a[:, i]))(q[:, i])
+        for i in range(q.shape[1])])  # (n, nv, nq)
     assert want.shape == (q.shape[1], tm.nv, tm.nq)
-    assert np.abs(want).max() > 100.0
+    assert float(want.abs().max()) > 100.0
     assert _rel(Gq.permute(2, 1, 0), want) < RTOL_PARTIALS
 
 
 def test_capsule_search_distance_derivative_is_exact():
-    """The envelope theorem on the searched distance itself: d phi by
-    forward mode through ``capsule_vs_shape`` (minimizer held fixed) equals
-    central differences of phi (minimizer free), on random poses of a
-    capsule against a box, moved along a random translation and turned
-    about a random axis.  Held where the capsule's axis stays outside the
-    box: inside it the point distance is a maximum over faces, the minimum
-    along the axis sits on a kink between two of them, and no derivative at
-    a fixed minimizer is the derivative of the minimum (the reference's is
-    not either).  Contacts that deep, a radius and more, are past what the
-    force law is used for."""
-    from torch.func import jvp
-
+    """d phi by forward mode through ``capsule_vs_shape`` equals central
+    differences of phi, on random poses of a capsule against a box, moved
+    along a random translation and turned about a random axis, where the
+    capsule's axis stays outside the box (inside it, see
+    test_capsule_box_derivatives_match_central_differences)."""
     from idto_tpu_torch.models.model import GeomType as TGeom
     from idto_tpu_torch.models.rotations import axis_angle_to_rot
 
@@ -443,8 +621,7 @@ def test_capsule_search_distance_derivative_is_exact():
     outside = phi(x0) > -float(prm_c[0]) + 1e-3
     assert 40 < int(outside.sum()) < n
     assert float(d_fd[outside].abs().max()) > 0.5
-    # The minimizer is known to 3.5e-9 of the segment, so the derivative
-    # taken there is off by that times the mixed second derivative: ~1e-8.
+    # Central differences with a step of 1e-6 are good to ~1e-10 here.
     assert float((d_ad - d_fd)[outside].abs().max()) < 1e-7
 
 

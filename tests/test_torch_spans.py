@@ -7,8 +7,6 @@ Each span's records nest in its parent's as the site table says, the
 spans under a region and its rest tile the region, the newest replans are
 the last ones run, and the reader raises once the ring has overwritten
 what it needs; a reset empties the ring and keeps it."""
-import os
-import sys
 from collections import defaultdict
 
 import numpy as np
@@ -18,10 +16,9 @@ import torch
 from idto_tpu_torch.examples.registry import load_example
 from idto_tpu_torch.mpc import controller as mpc
 from idto_tpu_torch.parallel.batching import broadcast_problem
+from idto_tpu_torch.soa import contact as tcon
 from idto_tpu_torch.utils import graphs, profiler
-
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "benchmark"))
+import torch_bench  # noqa: F401  (puts benchmark/ on sys.path)
 from yardstick import spans  # noqa: E402
 
 # One intra-op thread: several test workers share the cores.
@@ -31,12 +28,11 @@ REGIONS = ("mpc.replan_start", "solve.start", "solve.prepare",
            "solve.advance", "solve.finish", "mpc.store")
 
 
-def _pendulum():
-    """A pendulum at T=4, initialized directly; returns a function that
-    runs one replan through the stand-in and the ring's records written
-    before it."""
-    model, cfg, prob, params, q_guess = load_example("pendulum",
-                                                     device="cpu")
+def _pendulum(name="pendulum"):
+    """A pendulum (or the example ``name``) at T=4, initialized directly;
+    returns a function that runs one replan through the stand-in and the
+    ring's records written before it."""
+    model, cfg, prob, params, q_guess = load_example(name, device="cpu")
     T = 4
     prob = prob.replace(num_steps=T, q_nom=prob.q_nom[: T + 1],
                         v_nom=prob.v_nom[: T + 1])
@@ -166,3 +162,75 @@ def test_reset_empties_the_ring_it_keeps(ring):
     assert count == len(records) == 30
     assert profiler.sites[int(records[0, 0]) >> 1].name == "mpc.replan_start"
     assert len(spans.newest("replan", 1)) == 1
+
+
+# -- the capsule search's span: punyo's replans stamp it, the other models'
+# never enter it -------------------------------------------------------------
+
+def _second_replan(name):
+    """Two replans of ``name`` at T=4, the first of which captures: the
+    second's records and its spans' names."""
+    graphs.reset()
+    profiler.reset()
+    try:
+        replan = _pendulum(name)
+        replan()
+        written = replan()
+        count, records = profiler.device_records("cpu")
+        last = records[written - (count - len(records)):]
+        names = [profiler.sites[s].name for s, *_ in profiler.intervals(last)]
+        return last, names
+    finally:
+        graphs.reset()
+        profiler.reset()
+
+
+def test_punyo_replans_stamp_the_capsule_search():
+    """punyo's captured regions hold ``physics.capsule_search`` under each
+    physics span that evaluates contact: the forces of ``solve.prepare``
+    and ``solve.finish``, the partials (q, v and a tangents: three
+    step_tau evaluations under ``torch.func``) and the trial rollout of
+    ``solve.advance``, once in each: its 8 capsule-box pairs (the arms'
+    capsules against the chest and against the ground) are one search; a
+    capsule search's time counts towards ``physics_ms`` once, as self
+    time."""
+    records, _ = _second_replan("punyo")
+    ivs = profiler.intervals(records)
+    under = defaultdict(int)
+    for site, *_ in ivs:
+        if profiler.sites[site].name == "physics.capsule_search":
+            parent = profiler.sites[profiler.sites[site].parent]
+            region = profiler.sites[parent.parent].name
+            under[(region, parent.name)] += 1
+    assert dict(under) == {
+        ("solve.prepare", "physics.forces"): 1,
+        ("solve.prepare", "physics.partials"): 3,
+        ("solve.advance", "physics.trial"): 1,
+        ("solve.finish", "physics.forces"): 1,
+    }
+    op = spans.operations(len(records), records, profiler.sites,
+                          profiler.intervals, "replan", 1)[0]
+    assert op.span_ms["physics.capsule_search"] > 0.0
+
+
+class _SearchRan(Exception):
+    pass
+
+
+@pytest.mark.parametrize("name", ("hopper", "mini_cheetah", "punyo"))
+def test_models_without_capsules_never_enter_the_search(name, monkeypatch):
+    """The models without capsule-box pairs run no capsule search: their
+    replans, capture included, run with both searches made to raise, and
+    stamp no ``physics.capsule_search``; punyo's, which search, raise."""
+    def raises(*args, **kwargs):
+        raise _SearchRan
+
+    monkeypatch.setattr(tcon, "capsule_vs_box", raises)
+    monkeypatch.setattr(tcon, "_ternary_search", raises)
+    if name == "punyo":
+        with pytest.raises(_SearchRan):
+            _second_replan(name)
+        return
+    _, names = _second_replan(name)
+    assert "physics.forces" in names
+    assert "physics.capsule_search" not in names
